@@ -65,3 +65,9 @@ def _clear_jax_caches_between_modules():
     yield
     jax.clear_caches()
     gc.collect()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips elsewhere"
+    )

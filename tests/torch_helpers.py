@@ -1,0 +1,80 @@
+"""Helpers shared by the PyTorch port's tests and ``chip_smoke.py``.
+
+Nothing here imports JAX, so ``chip_smoke.py`` can use it on a machine
+that has PyTorch only.
+"""
+import math
+
+import numpy as np
+import torch
+
+from vectorizedmultiagentsimulator_tpu_torch.core import (
+    Agent,
+    Box,
+    Landmark,
+    Line,
+    Sphere,
+    World,
+)
+from vectorizedmultiagentsimulator_tpu_torch.utils import STATE_FIELDS
+
+
+def make_shape(spec):
+    if spec[0] == "sphere":
+        return Sphere(radius=spec[1])
+    if spec[0] == "box":
+        return Box(length=spec[1], width=spec[2], hollow=spec[3])
+    if spec[0] == "line":
+        return Line(length=spec[1])
+    raise ValueError(spec)
+
+
+def build_world(cfg, batch, device="cpu", seed=0):
+    """A finalized port ``World`` from a ``tests/physics_configs.py`` spec
+    (no joints); returns ``(world, {name: entity})``."""
+    if cfg.get("joints"):
+        raise ValueError("joint configs need core/joints.py, not ported yet")
+    wkw = dict(cfg.get("world", {}))
+    wkw.update(cfg.get("world_bounds", {}))
+    world = World(batch, device, **wkw)
+    entities = {}
+    for kind, cls in (("agents", Agent), ("landmarks", Landmark)):
+        for spec in cfg.get(kind, []):
+            spec = dict(spec)
+            name = spec.pop("name")
+            e = cls(name=name, shape=make_shape(spec.pop("shape")), **spec)
+            (world.add_agent if cls is Agent else world.add_landmark)(e)
+            entities[name] = e
+    world.finalize(seed=seed)
+    return world, entities
+
+
+def random_step_inputs(world, spread, seed):
+    """Physics-step inputs ``(pos, vel, rot, ang_vel, force, torque,
+    dyn_g)`` for ``world``, drawn from ``seed`` on the world's device:
+    positions uniform in ``[-spread, spread]`` (so many pairs overlap),
+    small random velocities and actions."""
+    g = torch.Generator(device=world.device).manual_seed(seed)
+    B, N, A = world.batch_dim, world._n_entities, len(world.agents)
+    D = len(world._dyn_gravity_names)
+
+    def u(*shape, lo=-1.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=world.device)
+
+    return (
+        u(B, N, 2, lo=-spread, hi=spread),
+        u(B, N, 2, lo=-0.5, hi=0.5),
+        u(B, N, 1, lo=-math.pi, hi=math.pi),
+        u(B, N, 1, lo=-0.5, hi=0.5),
+        u(B, A, 2),
+        u(B, A, 1, lo=-0.2, hi=0.2),
+        u(B, D, 2, lo=-0.1, hi=0.1),
+    )
+
+
+def jax_state_arrays(jax_state):
+    """A JAX ``WorldState`` as the numpy dict that
+    ``utils.state_from_numpy`` loads (``key`` and ``phys_pack`` left out)."""
+    out = {f: np.asarray(getattr(jax_state, f)) for f in STATE_FIELDS}
+    out["extras"] = {k: np.asarray(v) for k, v in jax_state.extras.items()}
+    return out

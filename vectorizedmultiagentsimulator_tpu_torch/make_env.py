@@ -1,0 +1,43 @@
+"""``make_env`` entry point (reference ``vmas/make_env.py:14-101``)."""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+from vectorizedmultiagentsimulator_tpu_torch import scenarios
+from vectorizedmultiagentsimulator_tpu_torch.environment import Environment
+from vectorizedmultiagentsimulator_tpu_torch.scenario import BaseScenario
+
+
+def make_env(
+    scenario: Union[str, BaseScenario],
+    num_envs: int,
+    device="cpu",
+    continuous_actions: bool = True,
+    max_steps: Optional[int] = None,
+    seed: Optional[int] = None,
+    dict_spaces: bool = False,
+    multidiscrete_actions: bool = False,
+    clamp_actions: bool = False,
+    grad_enabled: bool = False,
+    terminated_truncated: bool = False,
+    **kwargs,
+):
+    """Create an environment of ``num_envs`` parallel worlds on ``device``
+    (``"cpu"`` or ``"cuda"``); ``seed`` seeds the world's generator.
+    Remaining kwargs go to the scenario's ``make_world``."""
+    if isinstance(scenario, str):
+        scenario = scenarios.load(scenario).Scenario()
+    return Environment(
+        scenario,
+        num_envs=num_envs,
+        device=device,
+        continuous_actions=continuous_actions,
+        max_steps=max_steps,
+        seed=seed,
+        dict_spaces=dict_spaces,
+        multidiscrete_actions=multidiscrete_actions,
+        clamp_actions=clamp_actions,
+        grad_enabled=grad_enabled,
+        terminated_truncated=terminated_truncated,
+        **kwargs,
+    )

@@ -1,0 +1,32 @@
+"""Scenario registry and loader.
+
+Scenarios are importable modules registered in :data:`_REGISTRY`;
+``load(name)`` returns the module (exposing ``.Scenario``).  The registry
+holds the scenarios ported so far; the rest of the JAX package's library
+is ROADMAP Queue 1 item 7.
+"""
+from __future__ import annotations
+
+import importlib
+
+_REGISTRY = {
+    "transport": "vectorizedmultiagentsimulator_tpu_torch.scenarios.transport",
+    "simple_spread": (
+        "vectorizedmultiagentsimulator_tpu_torch.scenarios.mpe.simple_spread"
+    ),
+}
+
+
+def names():
+    return sorted(_REGISTRY)
+
+
+def load(name: str):
+    """Load a scenario module by name (``.py`` suffix tolerated, like the
+    reference loader)."""
+    if name.endswith(".py"):
+        name = name[: -len(".py")]
+    name = name.split("/")[-1]
+    if name not in _REGISTRY:
+        raise AssertionError(f"{name} scenario not found.")
+    return importlib.import_module(_REGISTRY[name])
