@@ -1,9 +1,10 @@
-"""The physics kernel on the card against its plain version.  These tests
-need an NVIDIA GPU and nvcc; elsewhere they skip.  This file imports no
-JAX, so on a machine with PyTorch only it runs as
+"""The physics and ray-cast kernels on the card against their plain
+versions.  These tests need an NVIDIA GPU and nvcc; elsewhere they skip.
+This file imports no JAX, so on a machine with PyTorch only it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import math
 import os
 import sys
 
@@ -13,10 +14,10 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 from physics_configs import CONFIGS
-from torch_helpers import build_world, random_step_inputs
+from torch_helpers import MANY_ENTITIES, build_world, random_step_inputs
 
 import vectorizedmultiagentsimulator_tpu_torch as vmt_torch
-from vectorizedmultiagentsimulator_tpu_torch.ops import physics_cuda
+from vectorizedmultiagentsimulator_tpu_torch.ops import physics_cuda, raycast_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -27,8 +28,8 @@ ATOL = RTOL = 1e-4
 
 # A kernel world with every per-entity feature the kernel covers: world
 # and per-entity static gravity, per-env dyn_gravity, linear and angular
-# friction, drag overrides, max_speed, v_range, a hollow movable box, and
-# several substeps.
+# friction, drag overrides, max_speed, v_range, a hollow movable box in a
+# box-box pair, and several substeps.
 FEATURES = dict(
     world=dict(substeps=3, dt=0.1, gravity=(0.0, -0.05),
                linear_friction=0.02, angular_friction=0.01, drag=0.1),
@@ -41,11 +42,8 @@ FEATURES = dict(
              gravity=np.tile(np.float32([[0.01, -0.02]]), (B, 1))),
     ],
     landmarks=[
-        # Box-box pairs are not a kernel class: the two boxes ignore
-        # each other.
         dict(name="hb", shape=("box", 0.5, 0.4, True), movable=True,
-             rotatable=True, mass=2.0, angular_friction=0.05,
-             collision_filter=lambda e: e.name != "a1"),
+             rotatable=True, mass=2.0, angular_friction=0.05),
     ],
     spread=0.3,
 )
@@ -56,6 +54,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     physics_cuda.build()
+    raycast_cuda.build()
 
 
 def _compare(world, inputs):
@@ -70,30 +69,87 @@ def _compare(world, inputs):
         torch.testing.assert_close(g, r, rtol=RTOL, atol=ATOL, msg=name)
 
 
-@pytest.mark.parametrize("cfg", ["spheres", "clamps", "hollow_box", "features"])
+@pytest.mark.parametrize("cfg", ["spheres", "clamps", "hollow_box", "features",
+                                 "boxes_lines", "gravity_friction"])
 def test_kernel_matches_plain(cuda, cfg):
     spec = FEATURES if cfg == "features" else CONFIGS[cfg]
     world, _ = build_world(spec, B, device="cuda")
     if cfg == "features":
         assert world._dyn_gravity_names == ["a3"]
+        assert len(world._pairs["bb"]) == 1
     _compare(world, random_step_inputs(world, spec["spread"], seed=11))
 
 
-@pytest.mark.parametrize("scenario", ["transport", "simple_spread"])
+def test_kernel_matches_plain_balance(cuda):
+    """Balance's line-sphere, box-sphere and box-line pairs, from its
+    reset state and from random inputs."""
+    env = vmt_torch.make_env("balance", num_envs=B, device="cuda", seed=0)
+    w, s = env.world, env.world.state
+    assert all(len(w._pairs[c]) for c in ("ss", "bs", "ls", "bl"))
+    _compare(w, (s.pos, s.vel, s.rot, s.ang_vel, s.force, s.torque,
+                 physics_cuda.stacked_dyn_gravity(w, s.extras)))
+    _compare(w, random_step_inputs(w, 0.5, seed=15))
+
+
+@pytest.mark.parametrize("scenario", ["transport", "simple_spread",
+                                      "navigation", "flocking", "balance"])
 def test_main_path_one_launch_per_step_no_sync(cuda, scenario):
+    """One physics launch a step, one ray-cast launch per LIDAR measure
+    (one LIDAR per agent), and no host sync over 5 steps."""
     env = vmt_torch.make_env(scenario, num_envs=B, device="cuda", seed=0)
     _compare(env.world, random_step_inputs(env.world, 0.3, seed=12))
+    lidars = sum(len(a.sensors) for a in env.agents)
     actions = [env.get_random_actions() for _ in range(5)]
     torch.cuda.synchronize()
-    before = physics_cuda.LAUNCHES
+    steps, casts = physics_cuda.LAUNCHES, raycast_cuda.LAUNCHES
     torch.cuda.set_sync_debug_mode("error")
     try:
         for a in actions:
             obs, rews, dones, _ = env.step(a)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert physics_cuda.LAUNCHES == before + 5
+    assert physics_cuda.LAUNCHES == steps + 5
+    assert raycast_cuda.LAUNCHES == casts + 5 * lidars
     assert all(bool(torch.isfinite(o).all()) for o in obs)
+
+
+def _cast_scene(seed, axis_aligned=False):
+    """A 30k-env scene of 2 boxes, 2 spheres and 2 lines around an origin
+    agent (entity 6), on the card, with its cast table."""
+    world, _ = build_world(dict(
+        agents=[dict(name="a", shape=("sphere", 0.03))],
+        landmarks=[dict(name="b0", shape=("box", 0.4, 0.2, False)),
+                   dict(name="b1", shape=("box", 0.3, 0.3, False)),
+                   dict(name="s0", shape=("sphere", 0.15)),
+                   dict(name="s1", shape=("sphere", 0.25)),
+                   dict(name="l0", shape=("line", 0.6)),
+                   dict(name="l1", shape=("line", 0.9))],
+    ), 30_000, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pos = torch.rand((30_000, 7, 2), generator=g, device="cuda") * 1.6 - 0.8
+    rot = torch.rand((30_000, 7, 1), generator=g, device="cuda") * 6.3 - 3.15
+    angles = torch.rand((12,), generator=g, device="cuda") * 6.3 - 3.15
+    if axis_aligned:
+        rot[:, :2] = 0.0
+        angles = torch.tensor([0.0, math.pi / 2, math.pi, -math.pi / 2] * 3,
+                              device="cuda")
+        pos[:, 0] = torch.tensor([0.1, 0.0], device="cuda")
+        pos[:, 6, 1] = torch.tensor([0.1, -0.1], device="cuda").repeat(15_000)
+    table = raycast_cuda.cast_table(world, [2, 3], [0, 1], [4, 5])
+    return pos, rot, angles, table
+
+
+@pytest.mark.parametrize("axis_aligned", [False, True])
+def test_raycast_kernel_matches_plain(cuda, axis_aligned):
+    pos, rot, angles, table = _cast_scene(16, axis_aligned)
+    before = raycast_cuda.LAUNCHES
+    for ang in (angles, angles[None] + rot[:, 6]):  # relative, world frame
+        got = raycast_cuda.fused_cast_rays(pos, rot, ang, 6, table, 1.5)
+        ref = raycast_cuda.cast_rays_plain(pos, rot, ang, 6, table, 1.5)
+        torch.cuda.synchronize()
+        assert int(((got == 1.5) != (ref == 1.5)).sum()) == 0
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    assert raycast_cuda.LAUNCHES == before + 2
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -106,8 +162,20 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         pos = inputs[0].transpose(0, 1).contiguous().transpose(0, 1)
         physics_cuda.fused_step(env.world, pos, *inputs[1:])
-    lines, _ = build_world(CONFIGS["boxes_lines"], 8, device="cuda")
+    many, _ = build_world(MANY_ENTITIES, 8, device="cuda")
     with pytest.raises(RuntimeError, match="does not step through the kernel"):
         physics_cuda.fused_step(
-            lines, *random_step_inputs(lines, 0.3, seed=14)
+            many, *random_step_inputs(many, 0.3, seed=14)
         )
+
+    pos, rot, angles, table = _cast_scene(17)
+    pos, rot = pos[:8].contiguous(), rot[:8].contiguous()
+    with pytest.raises(ValueError, match="mixed devices"):
+        raycast_cuda.fused_cast_rays(pos.cpu(), rot, angles, 6, table, 1.5)
+    with pytest.raises(TypeError, match="float32"):
+        raycast_cuda.fused_cast_rays(pos, rot, angles.double(), 6, table, 1.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        raycast_cuda.fused_cast_rays(pos, rot, torch.zeros(
+            (12, 8), device="cuda").t(), 6, table, 1.5)
+    with pytest.raises(ValueError, match="origin entity"):
+        raycast_cuda.fused_cast_rays(pos, rot, angles, 7, table, 1.5)

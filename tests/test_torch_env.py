@@ -27,7 +27,7 @@ def _full_nvec(agent, world):
 @pytest.mark.parametrize("multidiscrete", [True, False])
 def test_discrete_action_nvec(multidiscrete, num_envs=6, n_steps=3):
     env = vmt_torch.make_env(
-        "transport", num_envs=num_envs, seed=0,
+        "transport", num_envs=num_envs, device="cpu", seed=0,
         multidiscrete_actions=multidiscrete, continuous_actions=False,
     )
     random.seed(0)
@@ -82,7 +82,7 @@ def test_discrete_action_nvec(multidiscrete, num_envs=6, n_steps=3):
 
 
 def test_discrete_equals_multidiscrete(num_envs=6, n_steps=3):
-    kw = dict(num_envs=num_envs, seed=0, continuous_actions=False)
+    kw = dict(num_envs=num_envs, device="cpu", seed=0, continuous_actions=False)
     env = vmt_torch.make_env("transport", multidiscrete_actions=False, **kw)
     env_multi = vmt_torch.make_env("transport", multidiscrete_actions=True, **kw)
     for _ in range(n_steps):
@@ -104,7 +104,8 @@ def test_discrete_equals_multidiscrete(num_envs=6, n_steps=3):
 
 def test_continuous_actions_scaled_and_clamped(num_envs=4):
     env = vmt_torch.make_env(
-        "transport", num_envs=num_envs, seed=0, clamp_actions=True
+        "transport", num_envs=num_envs, device="cpu", seed=0,
+        clamp_actions=True,
     )
     env.step([torch.full((num_envs, 2), 10.0) for _ in env.agents])
     for agent in env.agents:
@@ -116,18 +117,18 @@ def test_continuous_actions_scaled_and_clamped(num_envs=4):
 
 
 def test_probe_wrong_action_width():
-    env = vmt_torch.make_env("transport", num_envs=4, seed=0)
+    env = vmt_torch.make_env("transport", num_envs=4, device="cpu", seed=0)
     with pytest.raises(AssertionError, match="Action for agent .* has shape"):
         env.step([torch.zeros(4, 3) for _ in env.agents])
 
 
 def test_probe_unknown_scenario():
     with pytest.raises(AssertionError, match="scenario not found."):
-        vmt_torch.make_env("no_such_scenario", num_envs=4)
+        vmt_torch.make_env("no_such_scenario", num_envs=4, device="cpu")
 
 
 def test_probe_reset_at_out_of_range():
-    env = vmt_torch.make_env("simple_spread", num_envs=4, seed=0)
+    env = vmt_torch.make_env("simple_spread", num_envs=4, device="cpu", seed=0)
     with pytest.raises(AssertionError, match="Index must be between"):
         env.reset_at(4)
     before = [o.clone() for o in env.reset()]
@@ -137,23 +138,39 @@ def test_probe_reset_at_out_of_range():
         assert not torch.equal(a[1], b[1])
 
 
+def test_make_env_defaults_to_the_card():
+    """No ``device`` means the CUDA card; without one, make_env raises and
+    names ``device="cpu"`` as the way to run on the CPU."""
+    if torch.cuda.is_available():
+        env = vmt_torch.make_env("transport", num_envs=2, seed=0)
+        assert env.device.type == "cuda" and env.world.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        vmt_torch.make_env("transport", num_envs=2, seed=0)
+
+
 def test_port_never_imports_jax():
     pattern = re.compile(
         r"^\s*(import|from) (jax|flax|vectorizedmultiagentsimulator_tpu)(\.|\s|$)"
     )
-    for dirpath, _, files in os.walk(PKG):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(dirpath, f)) as fh:
-                    for i, line in enumerate(fh, 1):
-                        assert not pattern.match(line), f"{f}:{i}: {line}"
+    sources = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(dirpath, f)
+        for dirpath, _, files in os.walk(PKG)
+        for f in files
+        if f.endswith(".py")
+    ]
+    for path in sources:
+        with open(path) as fh:
+            for i, line in enumerate(fh, 1):
+                assert not pattern.match(line), f"{path}:{i}: {line}"
     code = (
         "import importlib, pkgutil, sys\n"
         "import vectorizedmultiagentsimulator_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "env = p.make_env('transport', num_envs=2)\n"
-        "env.step(env.get_random_actions())\n"
+        "for name in ('transport', 'navigation'):\n"
+        "    env = p.make_env(name, num_envs=2, device='cpu')\n"
+        "    env.step(env.get_random_actions())\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'vectorizedmultiagentsimulator_tpu')]\n"
         "print(sorted(bad))\n"
@@ -169,7 +186,9 @@ def test_port_never_imports_jax():
 def test_rollout_and_reseed(num_envs=4, n_steps=3):
     from vectorizedmultiagentsimulator_tpu_torch.parallel import rollout
 
-    env = vmt_torch.make_env("simple_spread", num_envs=num_envs, seed=0)
+    env = vmt_torch.make_env(
+        "simple_spread", num_envs=num_envs, device="cpu", seed=0
+    )
     first = env.reset(seed=5)
     actions = [env.get_random_actions() for _ in range(n_steps)]
     traj = rollout(env, n_steps, actions)

@@ -1,9 +1,11 @@
 """The port's physics step: its plain path against the VMAS goldens, against
 the JAX package's ``World._step_core`` and its Pallas kernel (interpret
 mode), and the kernel wrapper's CPU behaviour and gradients."""
+import functools
 import os
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,11 +13,11 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 from physics_configs import BATCH, CONFIGS, N_STEPS
-from torch_helpers import build_world, random_step_inputs
+from torch_helpers import MANY_ENTITIES, build_world, random_step_inputs
 
 import vectorizedmultiagentsimulator_tpu as vmt
 import vectorizedmultiagentsimulator_tpu_torch as vmt_torch
-from vectorizedmultiagentsimulator_tpu_torch.ops import physics_cuda
+from vectorizedmultiagentsimulator_tpu_torch.ops import physics_cuda, raycast_cuda
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -29,7 +31,7 @@ def test_physics_golden(cfg_name):
     ``test_golden_physics.py`` does, at its tolerances."""
     data = np.load(os.path.join(GOLDEN, f"physics_{cfg_name}.npz"))
     cfg = CONFIGS[cfg_name]
-    world, entities = build_world(cfg, BATCH)
+    world, entities = build_world(cfg, BATCH, device="cpu")
     names = [str(n) for n in data["entity_names"]]
     assert [e.name for e in world.entities] == names
     for i, n in enumerate(names):
@@ -61,23 +63,34 @@ def test_physics_golden(cfg_name):
 
 
 def test_step_supported_is_static():
-    """Kernel worlds: only ss/bs pairs; any line or box-box pair keeps the
-    plain path."""
-    env = vmt_torch.make_env("transport", num_envs=2)
+    """Kernel worlds: every pair class, under the JAX kernel's size guard
+    (at most 64 entities, weighted pair count x substeps <= 2048)."""
+    env = vmt_torch.make_env("transport", num_envs=2, device="cpu")
     assert env.world._use_kernel and physics_cuda.step_supported(env.world)
-    expected = {"spheres": True, "clamps": True, "hollow_box": True,
-                "boxes_lines": False, "gravity_friction": False}
-    for cfg, supported in expected.items():
-        world, _ = build_world(CONFIGS[cfg], 2)
-        assert physics_cuda.step_supported(world) is supported, cfg
-        assert world._use_kernel is supported, cfg
+    for cfg in NO_JOINTS:
+        world, _ = build_world(CONFIGS[cfg], 2, device="cpu")
+        assert physics_cuda.step_supported(world), cfg
+        assert world._use_kernel, cfg
+    # Four boxes: 6 box-box pairs of weight 16, so 21 substeps pass the
+    # guard (2016) and 22 do not (2112).
+    boxes = [dict(name=f"b{i}", shape=("box", 0.2, 0.1, False))
+             for i in range(4)]
+    for substeps, supported in ((21, True), (22, False)):
+        world, _ = build_world(
+            dict(world=dict(substeps=substeps), agents=boxes), 2, device="cpu"
+        )
+        assert world._use_kernel is supported, substeps
+    world, _ = build_world(MANY_ENTITIES, 2, device="cpu")
+    assert not world._use_kernel
 
 
+@functools.lru_cache(maxsize=None)
 def _transport_pair(B=8):
     """The JAX and the port transport worlds at B envs, and one set of
-    step inputs with many overlapping pairs, as numpy arrays."""
+    step inputs with many overlapping pairs, as numpy arrays; built once
+    (the JAX env's first reset compiles for seconds)."""
     jenv = vmt.make_env("transport", num_envs=B, seed=0)
-    env = vmt_torch.make_env("transport", num_envs=B, seed=0)
+    env = vmt_torch.make_env("transport", num_envs=B, device="cpu", seed=0)
     inputs = [x.numpy() for x in random_step_inputs(env.world, 0.3, seed=7)]
     return jenv, env, inputs
 
@@ -85,7 +98,11 @@ def _transport_pair(B=8):
 def test_step_plain_matches_jax_step_core():
     jenv, env, inputs = _transport_pair()
     jw = jenv.world
-    ref = jw._step_core(*(jnp.asarray(x) for x in inputs[:6]), {})
+    # Jitted, as the JAX env runs it (and seconds faster to compile on the
+    # CPU than op by op).
+    ref = jax.jit(lambda *a: jw._step_core(*a, {}))(
+        *(jnp.asarray(x) for x in inputs[:6])
+    )
     got = physics_cuda.step_plain(env.world, *(torch.as_tensor(x) for x in inputs))
     for r, o, name in zip(ref, got, ("pos", "vel", "rot", "ang_vel")):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-5,
@@ -111,7 +128,7 @@ def test_step_plain_matches_jax_pallas_kernel(monkeypatch):
 
 
 def test_fused_step_on_cpu_runs_plain_and_counts_no_launch():
-    env = vmt_torch.make_env("transport", num_envs=8, seed=0)
+    env = vmt_torch.make_env("transport", num_envs=8, device="cpu", seed=0)
     inputs = random_step_inputs(env.world, 0.3, seed=8)
     before = physics_cuda.LAUNCHES
     got = physics_cuda.fused_step(env.world, *inputs)
@@ -125,7 +142,7 @@ def test_fused_step_on_cpu_runs_plain_and_counts_no_launch():
 def test_fused_step_gradients_match_plain():
     """The autograd.Function's backward (plain path re-run) gives the plain
     path's own gradients."""
-    env = vmt_torch.make_env("transport", num_envs=8, seed=0)
+    env = vmt_torch.make_env("transport", num_envs=8, device="cpu", seed=0)
     base = random_step_inputs(env.world, 0.3, seed=9)
     weights = [torch.randn(x.shape, generator=torch.Generator().manual_seed(i))
                for i, x in enumerate(base[:4])]
@@ -143,3 +160,42 @@ def test_fused_step_gradients_match_plain():
         assert torch.isfinite(g).all(), name
         torch.testing.assert_close(g, r, rtol=1e-6, atol=1e-6, msg=name)
     assert got[4].abs().sum() > 0  # the action force reaches the outputs
+
+
+@pytest.mark.parametrize("module,structs", [
+    (physics_cuda, ("Tables", "Dims")),
+    (raycast_cuda, ("CastTable",)),
+])
+def test_kernel_structs_match_ctypes_mirrors(module, structs, tmp_path):
+    """The structs a wrapper fills for its kernel have the C layout: every
+    field's offset and the size, from the .cu source compiled as host C++
+    (the struct definitions come before the source's anonymous namespace)."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler")
+    with open(module.SOURCE) as f:
+        src = f.read()
+    first = min(src.index(f"struct {s} {{") for s in structs)
+    if "enum PairClass" in src:
+        first = min(first, src.index("enum PairClass"))
+    lines = ["#include <cstdio>", "#include <cstddef>",
+             src[first:src.index("namespace {")], "int main() {"]
+    expected = []
+    for s in structs:
+        mirror = getattr(module, f"_{s}")
+        lines.append(f'printf("%zu\\n", sizeof({s}));')
+        expected.append(ctypes.sizeof(mirror))
+        for field, *_ in mirror._fields_:
+            lines.append(f'printf("%zu\\n", offsetof({s}, {field}));')
+            expected.append(getattr(mirror, field).offset)
+    lines.append("return 0; }")
+    (tmp_path / "layout.cpp").write_text("\n".join(lines))
+    subprocess.run([cxx, "-o", str(tmp_path / "layout"),
+                    str(tmp_path / "layout.cpp")], check=True)
+    out = subprocess.run([str(tmp_path / "layout")], capture_output=True,
+                         text=True, check=True).stdout.split()
+    assert [int(x) for x in out] == expected

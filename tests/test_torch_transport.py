@@ -1,6 +1,7 @@
-"""The port's main-path scenarios, transport and simple_spread: replay of
-the reference goldens, live parity with the JAX env from one injected
-state, and same-seed determinism."""
+"""The port's scenarios (transport and simple_spread; the LIDAR worlds
+navigation and flocking; balance): replay of the reference goldens, live
+parity with the JAX env from one injected state, same-seed determinism,
+and the heuristic policies against the JAX package's."""
 import ast
 import os
 import sys
@@ -20,7 +21,7 @@ from vectorizedmultiagentsimulator_tpu_torch.utils import (
 )
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
-SCENARIOS = ["simple_spread", "transport"]
+SCENARIOS = ["simple_spread", "transport", "navigation", "flocking", "balance"]
 # test_scenario_parity.py's default tolerance.
 BASE, GROWTH, MAX_FRAC = 5e-4, 1.6, 0.25
 
@@ -35,7 +36,8 @@ def test_scenario_golden(scenario):
                    allow_pickle=True)
     kwargs = ast.literal_eval(str(data["kwargs_json"]))
     B = data["pos"].shape[2]
-    env = vmt_torch.make_env(scenario, num_envs=B, seed=0, **kwargs)
+    env = vmt_torch.make_env(scenario, num_envs=B, device="cpu", seed=0,
+                             **kwargs)
     env.reset(seed=0)
 
     names = [str(n) for n in data["entity_names"]]
@@ -76,7 +78,7 @@ def test_live_parity_with_jax(scenario, B=8, n_steps=10):
     both stepped with the same numpy actions; obs, rewards and dones agree
     at atol 1e-5 growing x1.6 a step (test_scenario_parity's growth)."""
     jenv = vmt.make_env(scenario, num_envs=B, seed=0)
-    env = vmt_torch.make_env(scenario, num_envs=B, seed=1)
+    env = vmt_torch.make_env(scenario, num_envs=B, device="cpu", seed=1)
     if scenario == "transport":
         # Agents against the package's four sides, so the box-sphere
         # contacts act from the first step (entities: goal, package,
@@ -110,7 +112,8 @@ def test_live_parity_with_jax(scenario, B=8, n_steps=10):
 @pytest.mark.parametrize("scenario", SCENARIOS)
 def test_same_seed_same_trajectory(scenario, B=8, n_steps=5):
     def run(seed):
-        env = vmt_torch.make_env(scenario, num_envs=B, seed=seed)
+        env = vmt_torch.make_env(scenario, num_envs=B, device="cpu",
+                                 seed=seed)
         out = [env.reset()]
         for _ in range(n_steps):
             out.append(env.step(env.get_random_actions())[0])
@@ -132,4 +135,29 @@ def test_transport_heuristic_matches_jax():
     obs = np.random.RandomState(1).uniform(-1, 1, (16, 11)).astype(np.float32)
     ref = np.asarray(JaxPolicy().compute_action(obs, u_range=1.0))
     got = HeuristicPolicy().compute_action(torch.as_tensor(obs), u_range=1.0)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("scenario,obs_dim,continuous", [
+    ("navigation", 18, True),
+    ("flocking", 18, True),
+    ("balance", 16, True),
+    ("balance", 16, False),
+])
+def test_heuristic_matches_jax(scenario, obs_dim, continuous):
+    import importlib
+
+    JaxPolicy = importlib.import_module(
+        f"vectorizedmultiagentsimulator_tpu.scenarios.{scenario}"
+    ).HeuristicPolicy
+    Policy = importlib.import_module(
+        f"vectorizedmultiagentsimulator_tpu_torch.scenarios.{scenario}"
+    ).HeuristicPolicy
+
+    rng = np.random.RandomState(2)
+    obs = rng.uniform(-1, 1, (32, obs_dim)).astype(np.float32)
+    if scenario == "flocking":
+        obs[:, 6:18] = rng.uniform(0, 0.2, (32, 12))  # LIDAR distances
+    ref = np.asarray(JaxPolicy(continuous).compute_action(obs, u_range=0.8))
+    got = Policy(continuous).compute_action(torch.as_tensor(obs), u_range=0.8)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)

@@ -19,6 +19,14 @@ from vectorizedmultiagentsimulator_tpu_torch.core import (
 from vectorizedmultiagentsimulator_tpu_torch.utils import STATE_FIELDS
 
 
+# A world the physics kernel refuses: 65 entities (no pairs) is over its
+# 64-entity limit.
+MANY_ENTITIES = dict(
+    agents=[dict(name=f"a{i}", shape=("sphere", 0.01), collide=False)
+            for i in range(65)],
+)
+
+
 def make_shape(spec):
     if spec[0] == "sphere":
         return Sphere(radius=spec[1])
@@ -29,7 +37,7 @@ def make_shape(spec):
     raise ValueError(spec)
 
 
-def build_world(cfg, batch, device="cpu", seed=0):
+def build_world(cfg, batch, *, device, seed=0):
     """A finalized port ``World`` from a ``tests/physics_configs.py`` spec
     (no joints); returns ``(world, {name: entity})``."""
     if cfg.get("joints"):

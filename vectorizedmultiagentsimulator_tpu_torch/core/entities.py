@@ -483,7 +483,7 @@ class Landmark(Entity):
 
 
 class Agent(Entity):
-    """Reference core.py:830-1086.  Sensors (LIDAR) are not ported yet."""
+    """Reference core.py:830-1086."""
 
     def __init__(
         self,
@@ -508,6 +508,7 @@ class Agent(Entity):
         u_range: Union[float, Sequence[float]] = 1.0,
         u_multiplier: Union[float, Sequence[float]] = 1.0,
         action_script: Optional[Callable] = None,
+        sensors: Optional[List] = None,
         c_noise: float = 0.0,
         silent: bool = True,
         adversary: bool = False,
@@ -539,6 +540,8 @@ class Agent(Entity):
             gravity=gravity,
             collision_filter=collision_filter,
         )
+        if obs_range == 0.0:
+            assert sensors is None, f"Blind agent cannot have sensors, got {sensors}"
         if action_size is not None and discrete_action_nvec is not None:
             if action_size != len(discrete_action_nvec):
                 raise ValueError(
@@ -559,6 +562,10 @@ class Agent(Entity):
         self._t_range = t_range
         self._max_t = max_t
         self._action_script = action_script
+        self._sensors = []
+        if sensors is not None:
+            for sensor in sensors:
+                self.add_sensor(sensor)
         self._c_noise = c_noise
         self._silent = silent
         self._render_action = render_action
@@ -590,6 +597,10 @@ class Agent(Entity):
         self._action._agent = self
         self._state_view = AgentStateView(self)
         self.agent_index: Optional[int] = None  # index among world agents
+
+    def add_sensor(self, sensor):
+        sensor.agent = self
+        self._sensors.append(sensor)
 
     @property
     def dynamics(self):
@@ -643,6 +654,10 @@ class Agent(Entity):
     @property
     def silent(self):
         return self._silent
+
+    @property
+    def sensors(self) -> List:
+        return self._sensors
 
     @property
     def u_noise(self):

@@ -7,11 +7,13 @@ per-pair forces are summed per entity through a 0/1 incidence matrix; the
 integration is one vectorized update.  ``step`` runs the hand-written CUDA
 kernel (``ops/physics_cuda.py``) for worlds it supports, and
 ``_step_core`` — the plain PyTorch version and the kernel's reference —
-for the rest.
+for the rest.  ``cast_rays`` (the LIDAR) runs the ray-cast kernel
+(``ops/raycast_cuda.py``) on CUDA tensors and its plain version on CPU
+tensors.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +27,7 @@ from vectorizedmultiagentsimulator_tpu_torch.core.entities import (
 from vectorizedmultiagentsimulator_tpu_torch.core.state import WorldState
 from vectorizedmultiagentsimulator_tpu_torch.ops import geometry as geo
 from vectorizedmultiagentsimulator_tpu_torch.ops import physics_cuda
+from vectorizedmultiagentsimulator_tpu_torch.ops import raycast_cuda
 from vectorizedmultiagentsimulator_tpu_torch.utils import (
     ANGULAR_FRICTION,
     COLLISION_FORCE,
@@ -37,6 +40,7 @@ from vectorizedmultiagentsimulator_tpu_torch.utils import (
     X,
     Y,
     env_index_to_mask,
+    resolve_device,
 )
 
 Tensor = torch.Tensor
@@ -65,7 +69,7 @@ class World:
     ):
         assert batch_dim > 0, f"Batch dim must be greater than 0, got {batch_dim}"
         self._batch_dim = batch_dim
-        self._device = torch.device(device if device is not None else "cpu")
+        self._device = resolve_device(device)
         self._agents: List[Agent] = []
         self._landmarks: List[Landmark] = []
         self._x_semidim = x_semidim
@@ -92,6 +96,9 @@ class World:
         # first reset, when per-env extras such as dyn_mass exist.
         self._use_kernel = False
         self._kernel_tables = None
+        # Ray-cast tables per (origin entity index, entity filter), built
+        # at the first cast (cast_rays).
+        self._cast_tables: Dict[tuple, raycast_cuda.CastTable] = {}
 
     # ------------------------------------------------------------------ #
     # Construction API
@@ -789,6 +796,58 @@ class World:
         ta = TorchUtils.compute_torque(fa, point_a - pa)
         tb = TorchUtils.compute_torque(fb, point_b - pb)
         return fa, ta, fb, tb
+
+    # ------------------------------------------------------------------ #
+    # Ray casting (core.py:1628-1786)
+    # ------------------------------------------------------------------ #
+    def cast_rays(
+        self,
+        entity: Entity,
+        angles: Tensor,
+        max_range: float,
+        entity_filter: Callable[[Entity], bool] = lambda _: False,
+    ) -> Tensor:
+        """Distances ``[B, R]`` from ``entity`` along each ray to the first
+        entity that ``entity_filter`` selects, capped at ``max_range``.
+        ``angles`` is ``[B, R]`` in the world frame, or ``[R]`` relative to
+        ``entity``'s heading (a LIDAR's base angles).  One call is one
+        launch of the ray-cast kernel on CUDA tensors."""
+        key = (entity.index, entity_filter)
+        table = self._cast_tables.get(key)
+        if table is None:
+            classes = {shp.Sphere: [], shp.Box: [], shp.Line: []}
+            for e in self.entities:
+                if entity is e or not entity_filter(e):
+                    continue
+                assert e.collides(entity) and entity.collides(
+                    e
+                ), "Rays are only casted among collidables"
+                if type(e.shape) not in classes:
+                    raise RuntimeError(
+                        f"Shape {e.shape} currently not handled by cast_ray"
+                    )
+                classes[type(e.shape)].append(e.index)
+            table = raycast_cuda.cast_table(
+                self, classes[shp.Sphere], classes[shp.Box], classes[shp.Line]
+            )
+            self._cast_tables[key] = table
+        s = self._state
+        return raycast_cuda.fused_cast_rays(
+            s.pos, s.rot, angles, entity.index, table, max_range
+        )
+
+    def cast_ray(
+        self,
+        entity: Entity,
+        angles: Tensor,
+        max_range: float,
+        entity_filter: Callable[[Entity], bool] = lambda _: False,
+    ) -> Tensor:
+        """angles [B] -> distances [B] (the single-angle API,
+        core.py:1628-1660, on the vectorized cast)."""
+        return self.cast_rays(entity, angles[:, None], max_range, entity_filter)[
+            :, 0
+        ]
 
     # ------------------------------------------------------------------ #
     # Distance / overlap queries (core.py:1788-1969)

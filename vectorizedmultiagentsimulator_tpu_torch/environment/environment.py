@@ -22,6 +22,7 @@ from vectorizedmultiagentsimulator_tpu_torch.scenario import BaseScenario
 from vectorizedmultiagentsimulator_tpu_torch.utils import (
     AGENT_OBS_TYPE,
     env_index_to_mask,
+    resolve_device,
 )
 
 Tensor = torch.Tensor
@@ -53,7 +54,7 @@ class Environment:
         self.scenario = scenario
         self.num_envs = num_envs
         self.batch_dim = num_envs
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.world = scenario.env_make_world(num_envs, self.device, **kwargs)
         self.world.finalize(seed=seed)
 

@@ -11,7 +11,7 @@ from vectorizedmultiagentsimulator_tpu_torch.scenario import BaseScenario
 def make_env(
     scenario: Union[str, BaseScenario],
     num_envs: int,
-    device="cpu",
+    device=None,
     continuous_actions: bool = True,
     max_steps: Optional[int] = None,
     seed: Optional[int] = None,
@@ -22,9 +22,10 @@ def make_env(
     terminated_truncated: bool = False,
     **kwargs,
 ):
-    """Create an environment of ``num_envs`` parallel worlds on ``device``
-    (``"cpu"`` or ``"cuda"``); ``seed`` seeds the world's generator.
-    Remaining kwargs go to the scenario's ``make_world``."""
+    """Create an environment of ``num_envs`` parallel worlds on ``device``:
+    the CUDA card by default (an error where there is none), or
+    ``device="cpu"``; ``seed`` seeds the world's generator.  Remaining
+    kwargs go to the scenario's ``make_world``."""
     if isinstance(scenario, str):
         scenario = scenarios.load(scenario).Scenario()
     return Environment(

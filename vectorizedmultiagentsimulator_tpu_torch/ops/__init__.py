@@ -1,1 +1,7 @@
-from vectorizedmultiagentsimulator_tpu_torch.ops import geometry, physics_cuda  # noqa: F401
+from vectorizedmultiagentsimulator_tpu_torch.ops import (  # noqa: F401
+    cuda_build,
+    geometry,
+    physics_cuda,
+    raycast,
+    raycast_cuda,
+)

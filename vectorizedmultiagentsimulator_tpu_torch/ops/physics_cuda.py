@@ -5,7 +5,7 @@ Replaces the JAX package's Pallas kernel
 
 * ``step_supported(world)``: whether a world's step runs the kernel,
   decided from its static tables (mirrors ``physics_pallas.step_supported``
-  and adds the pair classes and joints the kernel does not cover yet);
+  and adds the joints the kernel does not cover yet);
 * ``step_plain``: the plain PyTorch version, ``World._step_core``;
 * ``fused_step``: the wrapper.  On CUDA tensors it launches the kernel or
   raises; on CPU tensors it runs ``step_plain``.  It is a
@@ -14,55 +14,41 @@ Replaces the JAX package's Pallas kernel
 * ``LAUNCHES``: the number of kernel launches, counted where the kernel is
   launched and nowhere else.
 
-The kernel is compiled with ``nvcc`` at first use, from the source in this
-package, into ``_build/<source hash>/`` beside it, and loaded with ctypes.
+The kernel is built at first use by :mod:`.cuda_build`.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
 import os
-import shutil
-import subprocess
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from vectorizedmultiagentsimulator_tpu_torch.ops import cuda_build
 
 LAUNCHES = 0
 
 MAX_ENTITIES = 64
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "physics_step.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+SOURCE = os.path.join(cuda_build.CSRC, "physics_step.cu")
 
-# -fmad=false: the kernel repeats the plain version's operations in its
-# order, and without contracted multiply-adds its contact distances carry
-# the plain version's bits (see the note at the top of the source).
-# -Xptxas=-v writes each kernel's registers and spills to build.log.
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-]
-
-# Classes the kernel covers; worlds with any other pair class step through
-# the plain version (ROADMAP Q2-1b ports them).
-_KERNEL_CLASSES = ("ss", "bs")
+# The pair classes, in the order of their rows in the kernel's pair table
+# (enum PairClass in csrc/physics_step.cu).
+KERNEL_CLASSES = ("ss", "bs", "ls", "ll", "bl", "bb")
+# The JAX kernel's per-pair unroll weights (physics_pallas.step_supported).
+PAIR_WEIGHTS = {"ss": 1, "bs": 2, "ls": 1, "ll": 3, "bl": 8, "bb": 16}
 
 
 def step_supported(world) -> bool:
     """Whether ``world`` steps through the kernel: at most 64 entities, no
-    per-env mass, only sphere-sphere and box-sphere pairs (no joints are
-    ported), and the JAX kernel's unroll-size guard."""
+    per-env mass, no joints (not ported), and the JAX kernel's size guard
+    (weighted pair count x substeps <= 2048)."""
     if world._n_entities > MAX_ENTITIES:
         return False
     if any(world.has_extra(f"{e.name}.dyn_mass") for e in world.entities):
         return False
-    if any(len(p) for c, p in world._pairs.items() if c not in _KERNEL_CLASSES):
-        return False
-    cost = len(world._pairs["ss"]) + 2 * len(world._pairs["bs"])
+    cost = sum(w * len(world._pairs[c]) for c, w in PAIR_WEIGHTS.items())
     return cost * world._substeps <= 2048
 
 
@@ -84,85 +70,70 @@ def step_plain(world, pos, vel, rot, ang_vel, force_a, torque_a, dyn_g):
     return world._step_core(pos, vel, rot, ang_vel, force_a, torque_a, extras)
 
 
-# ---------------------------------------------------------------------- #
-# Build and bind
-# ---------------------------------------------------------------------- #
-def find_nvcc() -> str:
-    """``nvcc`` on PATH, then ``$CUDA_HOME/bin``, then
-    ``/usr/local/cuda/bin``."""
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    candidates = []
-    if os.environ.get("CUDA_HOME"):
-        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
-    candidates.append("/usr/local/cuda/bin/nvcc")
-    for c in candidates:
-        if os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the"
-        " physics kernel cannot be built"
-    )
-
-
-def _source_hash() -> str:
-    h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
-
-
 def build() -> str:
-    """Compile the kernel library if this source has not been built yet;
-    returns the path of the shared library."""
-    out_dir = os.path.join(BUILD_DIR, _source_hash())
-    lib_path = os.path.join(out_dir, "libvmt_physics.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    os.replace(tmp, lib_path)
-    return lib_path
+    """Compile the kernel library if needed; returns its path."""
+    return cuda_build.build(SOURCE)
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = (
-    [_P] * 11  # pos, vel, rot, ang_vel, force_a, torque_a, dyn_g, 4 outputs
-    + [_P] * 17  # static tables and pair lists
-    + [_I] * 8  # B, N, A, n_landmarks, D, n_ss, n_bs, substeps
-    + [_F] * 3  # sub_dt, contact_margin, collision_force
-    + [_I, _F, _I, _F]  # has_x_semidim, x_semidim, has_y_semidim, y_semidim
-    + [_P]  # stream
+
+# The [N] tables of csrc/physics_step.cu's Tables, in its field order; the
+# packed pair table follows them.
+_TABLE_FIELDS = (
+    "movable", "rotatable", "mass", "moment", "drag", "max_speed", "v_range",
+    "gravity", "dyn_row", "radius", "length", "width", "hollow", "lin_fric",
+    "ang_fric",
 )
 
 
-@functools.lru_cache(maxsize=None)
+class _Tables(ctypes.Structure):
+    """``Tables`` of csrc/physics_step.cu, field for field."""
+
+    _fields_ = [(n, _P) for n in _TABLE_FIELDS + ("pairs",)]
+
+
+class _Dims(ctypes.Structure):
+    """``Dims`` of csrc/physics_step.cu, field for field."""
+
+    _fields_ = [
+        ("B", _I), ("N", _I), ("A", _I), ("n_landmarks", _I), ("D", _I),
+        ("substeps", _I), ("pair_start", _I * (len(KERNEL_CLASSES) + 1)),
+        ("sub_dt", _F), ("contact_margin", _F), ("collision_force", _F),
+        ("has_x_semidim", _I), ("has_y_semidim", _I), ("x_semidim", _F),
+        ("y_semidim", _F),
+    ]
+
+
+class KernelTables(NamedTuple):
+    """What a world's launches pass unchanged, built once at finalize: the
+    device tensors of ``Tables`` (kept alive here), and the host addresses
+    of the filled ``Tables`` and ``Dims`` structs."""
+
+    tensors: Tuple[torch.Tensor, ...]
+    structs: Tuple[_Tables, _Dims]
+    addresses: Tuple[int, int]
+
+
+_fn = None
+
+
 def _library():
-    lib = ctypes.CDLL(build())
-    fn = lib.vmt_physics_step
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    """``vmt_physics_step``, built and bound at the first launch."""
+    global _fn
+    if _fn is None:
+        _fn = cuda_build.entry_point(
+            SOURCE, "vmt_physics_step", [_P] * 11 + [_P, _P, _P]
+        )
+    return _fn
 
 
-def kernel_tables(world) -> Tuple[torch.Tensor, ...]:
-    """The 17 static tables the kernel reads, on the world's device, in the
-    order of ``vmt_physics_step``'s table parameters: the world's float32
-    device tables, plus int32 copies of the flags and pair lists.  Built
-    once, at finalize."""
+def kernel_tables(world) -> KernelTables:
+    """The kernel's static arguments for ``world``: the world's float32
+    device tables, int32 copies of the flags, and every class's pairs packed
+    into one int32 ``[P, 2]`` table in ``KERNEL_CLASSES`` order, with the
+    row where each class starts."""
     t = world._t
     names = [e.name for e in world.entities]
     dyn_row = np.full((len(names),), -1, dtype=np.int32)
@@ -174,13 +145,29 @@ def kernel_tables(world) -> Tuple[torch.Tensor, ...]:
             np.ascontiguousarray(x, dtype=np.int32), device=world.device
         )
 
-    return (
+    per_class = [
+        np.asarray(world._pairs[c], dtype=np.int32).reshape(-1, 2)
+        for c in KERNEL_CLASSES
+    ]
+    start = np.cumsum([0] + [len(p) for p in per_class])
+    tensors = (
         i32(world._movable), i32(world._rotatable), t["mass"], t["moment"],
         t["drag_coef"], t["max_speed"], t["v_range"], t["gravity_vec"],
         i32(dyn_row), t["radius"], t["length"], t["width"],
         i32(world._hollow), t["lin_friction"], t["ang_friction"],
-        i32(world._pairs["ss"]), i32(world._pairs["bs"]),
+        i32(np.concatenate(per_class)),
     )
+    tables = _Tables(*(x.data_ptr() for x in tensors))
+    dims = _Dims(
+        world.batch_dim, world._n_entities, len(world.agents),
+        world._n_landmarks, len(world._dyn_gravity_names), world._substeps,
+        (_I * len(start))(*start.tolist()), world._sub_dt,
+        world._contact_margin, world._collision_force,
+        int(world._x_semidim is not None), int(world._y_semidim is not None),
+        float(world._x_semidim or 0.0), float(world._y_semidim or 0.0),
+    )
+    addresses = (ctypes.addressof(tables), ctypes.addressof(dims))
+    return KernelTables(tensors, (tables, dims), addresses)
 
 
 def _check(name, x: torch.Tensor, shape, device):
@@ -198,17 +185,18 @@ def launch(world, pos, vel, rot, ang_vel, force_a, torque_a, dyn_g):
     """Launch the kernel on PyTorch's current stream; returns the new
     ``(pos, vel, rot, ang_vel)``, allocated here."""
     global LAUNCHES
-    tables: Optional[Tuple[torch.Tensor, ...]] = world._kernel_tables
-    if tables is None or not world._use_kernel:
+    kt: Optional[KernelTables] = world._kernel_tables
+    if kt is None or not world._use_kernel:
         raise RuntimeError("this world does not step through the kernel")
-    B, N = pos.shape[0], world._n_entities
-    A = len(world.agents)
-    D = len(world._dyn_gravity_names)
     dev = pos.device
     if dev.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, got {dev}")
-    if tables[0].device != dev:
-        raise ValueError(f"world tables are on {tables[0].device}, state on {dev}")
+    if kt.tensors[0].device != dev:
+        raise ValueError(
+            f"world tables are on {kt.tensors[0].device}, state on {dev}"
+        )
+    B, N = world.batch_dim, world._n_entities
+    A, D = len(world.agents), len(world._dyn_gravity_names)
     for name, x, shape in (
         ("pos", pos, (B, N, 2)),
         ("vel", vel, (B, N, 2)),
@@ -220,24 +208,16 @@ def launch(world, pos, vel, rot, ang_vel, force_a, torque_a, dyn_g):
     ):
         _check(name, x, shape, dev)
     out = [torch.empty_like(x) for x in (pos, vel, rot, ang_vel)]
-    fn = _library()
-    err = fn(
-        *(x.data_ptr() for x in (pos, vel, rot, ang_vel, force_a, torque_a,
-                                 dyn_g)),
-        *(x.data_ptr() for x in out),
-        *(x.data_ptr() for x in tables),
-        B, N, A, world._n_landmarks, D,
-        len(world._pairs["ss"]), len(world._pairs["bs"]), world._substeps,
-        world._sub_dt, world._contact_margin, world._collision_force,
-        int(world._x_semidim is not None), float(world._x_semidim or 0.0),
-        int(world._y_semidim is not None), float(world._y_semidim or 0.0),
+    err = _library()(
+        pos.data_ptr(), vel.data_ptr(), rot.data_ptr(), ang_vel.data_ptr(),
+        force_a.data_ptr(), torque_a.data_ptr(), dyn_g.data_ptr(),
+        *(x.data_ptr() for x in out), *kt.addresses,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"physics kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return tuple(out)
-
 
 class _FusedStep(torch.autograd.Function):
     @staticmethod

@@ -10,6 +10,9 @@ from __future__ import annotations
 import importlib
 
 _REGISTRY = {
+    "balance": "vectorizedmultiagentsimulator_tpu_torch.scenarios.balance",
+    "flocking": "vectorizedmultiagentsimulator_tpu_torch.scenarios.flocking",
+    "navigation": "vectorizedmultiagentsimulator_tpu_torch.scenarios.navigation",
     "transport": "vectorizedmultiagentsimulator_tpu_torch.scenarios.transport",
     "simple_spread": (
         "vectorizedmultiagentsimulator_tpu_torch.scenarios.mpe.simple_spread"

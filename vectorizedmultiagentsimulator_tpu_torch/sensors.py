@@ -1,0 +1,88 @@
+"""Sensors (reference ``vmas/simulator/sensors.py``).
+
+PyTorch counterpart of ``vectorizedmultiagentsimulator_tpu/sensors.py``.
+``Lidar.measure`` is one ``World.cast_rays`` call with the LIDAR's base
+angles, which the ray-cast kernel turns into world-frame angles itself.
+Rendering is not ported: ``render`` returns no geometry.
+"""
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from typing import Callable, Tuple, Union
+
+import numpy as np
+import torch
+
+from vectorizedmultiagentsimulator_tpu_torch.utils import Color
+
+
+class Sensor(ABC):
+    def __init__(self, world):
+        self._world = world
+        self._agent = None
+
+    @property
+    def agent(self):
+        return self._agent
+
+    @agent.setter
+    def agent(self, agent):
+        self._agent = agent
+
+    @abstractmethod
+    def measure(self):
+        raise NotImplementedError
+
+    @abstractmethod
+    def render(self, env_index: int = 0) -> list:
+        raise NotImplementedError
+
+
+class Lidar(Sensor):
+    def __init__(
+        self,
+        world,
+        angle_start: float = 0.0,
+        angle_end: float = 2 * np.pi,
+        n_rays: int = 8,
+        max_range: float = 1.0,
+        entity_filter: Callable = lambda _: True,
+        render_color: Union[Color, Tuple[float, float, float]] = Color.GRAY,
+        alpha: float = 1.0,
+        render: bool = True,
+    ):
+        """``render_color``, ``alpha`` and ``render`` keep the JAX
+        package's signature; rendering is not ported."""
+        super().__init__(world)
+        # Drop the duplicated endpoint on full circles (sensors.py:61-68).
+        if (angle_start - angle_end) % (np.pi * 2) < 1e-5:
+            angles = np.linspace(angle_start, angle_end, n_rays + 1)[:n_rays]
+        else:
+            angles = np.linspace(angle_start, angle_end, n_rays)
+        # [R] angles relative to the agent's heading, on the world's device.
+        self._angles = torch.as_tensor(
+            angles, dtype=torch.float32, device=world.device
+        )
+        self._max_range = max_range
+        self._entity_filter = entity_filter
+
+    @property
+    def entity_filter(self):
+        return self._entity_filter
+
+    @entity_filter.setter
+    def entity_filter(self, entity_filter: Callable):
+        self._entity_filter = entity_filter
+
+    def measure(self) -> torch.Tensor:
+        """Distances ``[B, n_rays]`` to the first entity the filter
+        selects along each ray, capped at ``max_range``."""
+        return self._world.cast_rays(
+            self.agent,
+            self._angles,
+            max_range=self._max_range,
+            entity_filter=self.entity_filter,
+        )
+
+    def render(self, env_index: int = 0) -> list:
+        return []

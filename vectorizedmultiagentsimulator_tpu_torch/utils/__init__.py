@@ -120,6 +120,19 @@ class TorchUtils:
         return torch.where(mask, new_value, old_value)
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the CUDA card.
+    Without one, ``None`` raises: the CPU is only used when asked for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "No CUDA device is available, and the port runs on the card"
+            ' unless asked otherwise: pass device="cpu" to run on the CPU.'
+        )
+    return torch.device("cuda")
+
+
 def env_index_to_mask(env_index, batch_dim: int, device=None) -> Tensor:
     """Normalize an env index spec (None | int | int tensor | bool mask) to
     a boolean mask of shape ``[batch_dim]``."""
