@@ -5,9 +5,10 @@
 
 Phases, one line each:
   1. the card (nvidia-smi name and power limit), the torch/CUDA versions,
-     and the build of both kernels, csrc/physics_step.cu and
-     csrc/raycast.cu (one nvcc each, started together), with ptxas'
-     registers and spills;
+     and the build of the three kernels, csrc/physics_step.cu,
+     csrc/raycast.cu and csrc/ppo_update.cu (the last once per network
+     shape of PPO_BUILDS; one nvcc each, all started together), with ptxas'
+     registers and spills and the PPO kernel's shared memory;
   2. each kernel against its plain PyTorch version from identical inputs
      on the card.  Physics, one step: the `spheres`, `clamps`,
      `boxes_lines`, `hollow_box` and `gravity_friction` worlds of
@@ -18,24 +19,43 @@ Phases, one line each:
      and axis-aligned rays against unrotated boxes; each line counts the
      rays that hit and the rays where one side hits and the other misses.
      Then each kernel's time beside its plain version's (physics at each
-     main path, the ray cast at navigation@30k);
+     main path, the ray cast at navigation@30k).  PPO update: one minibatch
+     at transport@4096's shapes in Gaussian, flat-categorical and
+     multidiscrete mode, with a 1-wide action, with norm_n != mb, with a
+     ragged last tile, with hidden sizes of 96 and 128 (smaller tiles), at
+     the shapes of every training run of phases 3 to 5 from random data,
+     and on the packed rollout of a real rollout of each training path of
+     phase 3 (transport@4096 over 64 steps, navigation@4096 over 16); max
+     |kernel - plain| of every gradient and sum, two launches bit-identical,
+     then the time of a launch (CUDA events and the profiler's device
+     time), its bound and the plain version's time;
   3. the main paths: make_env(name, num_envs=30_000, device="cuda") for
      transport, simple_spread, navigation, flocking and balance, reset,
-     200 env.step calls under torch.cuda.set_sync_debug_mode("error") (any
+     100 env.step calls under torch.cuda.set_sync_debug_mode("error") (any
      host sync fails the run); outputs finite and of the JAX package's
      shapes; exactly one physics launch per step and one ray-cast launch
      per LIDAR measure (4 a step in navigation and flocking, none
      elsewhere), each count set to 0 just before the run and read just
      after.  Then each CUDA env against the CPU env (plain path) from one
-     state over 10 steps at 64 envs;
-  4. env-steps/s of each 200-step rollout through the kernels and with
+     state over 10 steps at 64 envs.  Then training:
+     init_training("transport", 4096) at the PPOConfig defaults and 3
+     train_step calls under the same sync check: 16 PPO-update launches and
+     64 physics launches an iteration, finite loss and reward, parameters
+     changed, the spawner's give-ups printed; the same for navigation (ray
+     casts in the rollout) with 16-step rollouts;
+  4. env-steps/s of each 100-step rollout through the kernels and with
      both kernels forced off (the world on its plain physics, the ray cast
      on cast_rays_plain), in turns (kernel, plain, plain, kernel), timed
-     with CUDA events;
+     with CUDA events; then training env-steps/s of simple_spread@4096,
+     transport@4096 and transport@16384 with the PPO kernel and with the
+     autograd update, in turns, and the rollout and update time of an
+     iteration;
   5. a torch.profiler trace of 50 steady steps of each scenario at 30k,
      kernels on and off: wall ms a step (CUDA events, without the
      profiler), device busy ms a step, idle share, device kernels a step,
-     and each kernel's device ms a step.
+     and each kernel's device ms a step; then for each training cell the
+     host's enqueue time of a rollout step split into env.step, the masked
+     reset and the rest, and one training iteration under the profiler.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -46,7 +66,7 @@ package beside it, the script fails before printing any result.
 compares this checkout's package with another checkout's (for example the
 parent commit unpacked with `git archive` into a gitignored directory) on
 one card: PAIRS (default 10) alternating pairs of processes, each running
-two 200-step rollouts of transport and simple_spread at 30k envs and 200
+two 100-step rollouts of transport and simple_spread at 30k envs and 200
 back-to-back physics wrapper calls; it prints each run and a JSON summary.
 """
 import contextlib
@@ -60,7 +80,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_ENVS = 30_000
-N_STEPS = 200
+N_STEPS = 100
 # Physics kernel vs plain, one step from identical inputs: the two sum
 # each entity's fp32 forces in another order, and the card's libm is not
 # the CPU's; contact penalties (collision_force 100 over a 1e-3 margin)
@@ -94,6 +114,41 @@ FP32_FLOP_PER_S = 67e12
 PHYSICS_OPS = {"ss": 29, "bs": 131, "ls": 42, "ll": 133, "bl": 470,
                "bb": 3300, "entity": 25}
 CAST_OPS = {"ray": 3, "sphere": 37, "box": 55, "line": 28}
+# bf16 products with fp32 accumulation in the tensor cores (the same sheet).
+BF16_FLOP_PER_S = 989e12
+# PPO-update kernel vs plain, one minibatch from identical inputs.  Both sum
+# 262,144 per-sample terms of either sign in fp32, the kernel per tile and
+# block in a fixed order, the plain version inside a library matrix product,
+# and the card's tanhf/expf are not the library's, which now and then moves
+# an activation across a bf16 rounding step (2^-9 relative) before a trunk
+# product.  So each gradient is held to a share of its own largest entry,
+# and each loss sum to a relative error plus an absolute one that grows
+# with the number of O(1) terms summed.
+PPO_GRAD_TOL = 2e-3      # x max |plain gradient|, per gradient
+PPO_SUM_RTOL = 1e-4
+PPO_SUM_ATOL_PER_SAMPLE = 1e-6
+# Network shapes (obs_d, act_w, n_logits, hidden) that this run launches
+# the PPO kernel with; the source is compiled once for each.
+PPO_BUILDS = {
+    "transport": (15, 2, 0, 64),
+    "transport flat categorical": (15, 1, 9, 64),
+    "transport multidiscrete": (15, 2, 3, 64),
+    "simple_spread": (17, 2, 0, 64),
+    "1-wide action": (15, 1, 0, 64),
+    "navigation": (22, 2, 0, 64),
+    "transport hidden 96": (15, 2, 0, 96),
+    "transport hidden 128": (15, 2, 0, 128),
+    "transport multidiscrete hidden 128": (15, 2, 3, 128),
+}
+# (scenario, envs, rollout steps, iterations, ray casts a step) of the
+# training runs of phase 3; a step observes once and once more in its
+# masked reset, so it casts each LIDAR twice.
+TRAIN_PATHS = [("transport", 4096, 64, 3, 0), ("navigation", 4096, 16, 2, 8)]
+TRAIN_CELLS = [("simple_spread", 4096), ("transport", 4096),
+               ("transport", 16384)]
+# The specs phase 2 held to the plain version; a training run of a later
+# phase whose spec is not among them fails.
+PPO_COMPARED = set()
 
 
 def log(msg):
@@ -213,7 +268,7 @@ def bound(moved, ops):
 
 
 def main_path(name, n_agents, obs_dim, casts_per_step):
-    """200 steps of make_env(name) at 30k envs on the card with no host
+    """N_STEPS steps of make_env(name) at 30k envs on the card with no host
     sync; returns the physics and ray-cast launches counted in that run."""
     import torch
     import vectorizedmultiagentsimulator_tpu_torch as vmt
@@ -371,7 +426,7 @@ def profile_steps(env, actions, on):
 
 
 def rate_worker(root):
-    """``--rate ROOT``: for each scenario of AB_SCENARIOS, two 200-step
+    """``--rate ROOT``: for each scenario of AB_SCENARIOS, two N_STEPS-step
     rollouts' env-steps/s and the physics wrapper's time per call (200
     back-to-back calls from the reset state, CUDA events) of the port
     package found at ROOT; one JSON line."""
@@ -438,6 +493,364 @@ def ab(parent_root, pairs):
     print(json.dumps({"ab_pairs": pairs, "summary": summary}), flush=True)
 
 
+def ppo_spec(shape, lb=4096, mb=262144, norm_n=0):
+    """The PPOUpdateSpec of a PPO_BUILDS shape at the PPOConfig defaults."""
+    from vectorizedmultiagentsimulator_tpu_torch.ops import ppo_update_cuda
+
+    od, aw, nl, hidden = shape
+    return ppo_update_cuda.PPOUpdateSpec(
+        obs_d=od, act_w=aw, hidden=hidden, lb=lb, mb=mb, clip_eps=0.2,
+        vf_coef=0.5, ent_coef=0.01, n_logits=nl, norm_n=norm_n)
+
+
+def train_spec(name, num_envs, rollout_steps=64):
+    """The spec of init_training(name, num_envs) at the PPOConfig defaults
+    with ``rollout_steps``-step rollouts: 4 minibatches an epoch."""
+    n_agents = {path[0]: path[1] for path in MAIN_PATHS}[name]
+    return ppo_spec(PPO_BUILDS[name],
+                    mb=rollout_steps * n_agents * num_envs // 4)
+
+
+def ppo_vs_plain(spec, inputs, label):
+    """One minibatch through the kernel, twice, and through the plain
+    version; returns the largest |kernel - plain| over the gradients."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.ops import ppo_update_cuda
+
+    PPO_COMPARED.add(spec)
+    got_g, got_s = ppo_update_cuda.minibatch_update(spec, *inputs)
+    rep_g, rep_s = ppo_update_cuda.minibatch_update(spec, *inputs)
+    ref_g, ref_s = ppo_update_cuda.minibatch_update_plain(spec, *inputs)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got_g + got_s, rep_g + rep_s))
+    names = ("W1", "b1", "W2", "b2", "Wm", "bm", "log_std", "Wv", "bv", "Wv2",
+             "bv2")
+    worst_abs, worst_share, bad = 0.0, 0.0, []
+    for name, g, r in zip(names, got_g, ref_g):
+        assert bool(torch.isfinite(g).all()), f"{label}: d{name} not finite"
+        d = float((g - r).abs().max())
+        scale = float(r.abs().max())
+        worst_abs = max(worst_abs, d)
+        if scale > 0:
+            worst_share = max(worst_share, d / scale)
+        if d > PPO_GRAD_TOL * scale + 1e-12:
+            bad.append(f"d{name} {d:.3e} of {scale:.3e}")
+    sum_errs = []
+    for name, g, r in zip(("pg", "vf", "ent"), got_s, ref_s):
+        d, r = abs(float(g) - float(r)), abs(float(r))
+        sum_errs.append(d)
+        if d > PPO_SUM_RTOL * r + PPO_SUM_ATOL_PER_SAMPLE * spec.mb:
+            bad.append(f"{name}_sum {d:.3e} of {r:.3e}")
+    log(f"[2] ppo update {label}: D={spec.d} n={inputs[0].shape[1]}"
+        f" mb={spec.mb} lb={spec.lb} norm={spec.norm}"
+        f" max|kernel-plain| gradients {worst_abs:.3e}"
+        f" ({worst_share:.3e} of the gradient's largest entry), sums pg/vf/ent"
+        f" {sum_errs[0]:.3e} {sum_errs[1]:.3e} {sum_errs[2]:.3e};"
+        f" repeat launch bit-identical: {same}")
+    if bad or not same:
+        raise AssertionError(
+            f"{label}: PPO kernel disagrees with plain ({'; '.join(bad)})"
+            f" or a repeat launch differs (identical: {same})"
+        )
+    return worst_abs
+
+
+def ppo_random_case(spec, nb_tot, seed):
+    import torch
+    from torch_helpers import random_ppo_inputs
+
+    packed, perm, stats, params = random_ppo_inputs(spec, nb_tot, seed)
+    to = lambda x: torch.as_tensor(x, device="cuda")
+    return to(packed), to(perm), to(stats), tuple(to(p) for p in params)
+
+
+def ppo_bound_ms(spec, inputs):
+    """The least time of one minibatch update on the H100.  Bytes: the
+    minibatch's columns of the packed rollout, the block indices, the
+    statistics and the parameters read once, the gradients and sums written
+    once.  Operations: the trunk's products (bf16 operands, fp32 sums: W1,
+    Wv, W2 forward, and dW1, dWv, dW2, dh1 backward) at the tensor cores'
+    bf16 rate, and the fp32 heads (Wm, Wv2 and their three backward
+    products) and the elementwise work (3H tanh and their derivatives, the
+    loss head) at the fp32 rate; returns (ms, by, ms if every product ran at
+    the fp32 rate, as this kernel's do)."""
+    od, H, hw = spec.obs_d, spec.hidden, spec.mask_w
+    n_params = sum(p.numel() for p in inputs[3])
+    moved = 4 * (spec.d * spec.mb + spec.mb // spec.lb + 2 + 2 * n_params + 3)
+    trunk = 2 * (4 * od * H + 3 * H * H) * spec.mb
+    rest = (2 * (3 * H * hw + 2 * H) + 15 * H + 30 * hw) * spec.mb
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = (trunk / BF16_FLOP_PER_S + rest / FP32_FLOP_PER_S) * 1e3
+    t_fp32 = (trunk + rest) / FP32_FLOP_PER_S * 1e3
+    ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return ms, by, t_fp32
+
+
+def ppo_device_ms(fn, iters):
+    """Device time of one call's PPO kernels (update and reduce) from a
+    torch.profiler trace of ``iters`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "ppo_" in e.name) / 1e3 / iters
+
+
+def train_path(name, num_envs, rollout_steps, iters, casts_per_step):
+    """``iters`` training iterations of init_training(name, num_envs) on the
+    card with no host sync; returns the (PPO, physics, ray-cast) launches
+    counted in that run."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
+    from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        physics_cuda,
+        ppo_update_cuda,
+        raycast_cuda,
+    )
+
+    cfg = torch_ppo.PPOConfig(rollout_steps=rollout_steps)
+    env, train_step, trainer = torch_ppo.init_training(name, num_envs, seed=0,
+                                                       cfg=cfg)
+    assert trainer.fused and env.world._use_kernel, f"{name}: not on the kernels"
+    assert trainer.spec == train_spec(name, num_envs, rollout_steps), trainer.spec
+    assert trainer.spec in PPO_COMPARED, f"{trainer.spec} was not compared"
+    before = [p.detach().clone() for p in trainer.model.ordered_parameters()]
+    give_ups_before = env.world.spawn_give_ups.clone()
+    metrics = []
+    torch.cuda.synchronize()
+    ppo_update_cuda.LAUNCHES = physics_cuda.LAUNCHES = raycast_cuda.LAUNCHES = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(iters):
+            trainer, m = train_step(trainer)
+            metrics.append(m)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = (ppo_update_cuda.LAUNCHES, physics_cuda.LAUNCHES,
+              raycast_cuda.LAUNCHES)
+    torch.cuda.synchronize()
+    expected = (iters * cfg.epochs * cfg.minibatches, iters * rollout_steps,
+                iters * rollout_steps * casts_per_step)
+    if counts != expected:
+        raise AssertionError(
+            f"{name}: (PPO, physics, ray-cast) launches {counts} in {iters}"
+            f" iterations, expected {expected}"
+        )
+    losses = [float(m["loss"]) for m in metrics]
+    rewards = [float(m["mean_reward"]) for m in metrics]
+    assert all(math.isfinite(x) for x in losses + rewards), (losses, rewards)
+    moved = max(float((p.detach() - b).abs().max())
+                for p, b in zip(trainer.model.ordered_parameters(), before))
+    assert moved > 0 and all(
+        bool(torch.isfinite(p).all()) for p in trainer.model.parameters())
+    give_ups = int(env.world.spawn_give_ups - give_ups_before)
+    log(f"[3] train {name}@{num_envs}: {iters} iterations of {rollout_steps}"
+        f" steps x {cfg.epochs} epochs x {cfg.minibatches} minibatches of"
+        f" {trainer.spec.mb} samples (lb {trainer.spec.lb}), no host sync;"
+        f" PPO launches {counts[0]}, physics launches {counts[1]}, ray-cast"
+        f" launches {counts[2]}; loss {' '.join(f'{x:+.5f}' for x in losses)};"
+        f" mean reward {' '.join(f'{x:+.5f}' for x in rewards)}; max"
+        f" |parameter change| {moved:.3e}; spawner give-ups {give_ups}")
+    return counts
+
+
+def train_rates(name, num_envs, iters=2):
+    """Training env-steps/s of one cell with the PPO kernel and with the
+    autograd update, in turns (kernel, autograd, autograd, kernel), each
+    turn ``iters`` iterations after one warm-up; the rollout (with GAE and
+    packing) and the update are timed apart on the host clock, each ended
+    by a synchronize."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
+
+    trainers = {}
+    for fused in (True, False):
+        cfg = torch_ppo.PPOConfig(fused_update=fused)
+        trainers[fused] = torch_ppo.init_training(name, num_envs, seed=0,
+                                                  cfg=cfg)[2]
+        assert trainers[fused].fused == fused
+        assert trainers[fused].spec in PPO_COMPARED, trainers[fused].spec
+        trainers[fused].train_step()
+    torch.cuda.synchronize()
+    rows = {True: [], False: []}
+    for fused in (True, False, False, True):
+        tr, roll_s, upd_s = trainers[fused], 0.0, 0.0
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            packed, _ = tr.collect()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss = tr.update(packed)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            roll_s += t1 - t0
+            upd_s += t2 - t1
+        assert math.isfinite(float(loss))
+        steps = iters * tr.cfg.rollout_steps * num_envs
+        rows[fused].append((steps / (roll_s + upd_s), roll_s / iters * 1e3,
+                            upd_s / iters * 1e3))
+    for fused, tag in ((True, "PPO kernel"), (False, "autograd update")):
+        log(f"[4] train {name}@{num_envs} {tag}: env-steps/s "
+            + " ".join(f"{r[0]:.6g}" for r in rows[fused])
+            + "; rollout ms/iteration "
+            + " ".join(f"{r[1]:.2f}" for r in rows[fused])
+            + "; update ms/iteration "
+            + " ".join(f"{r[2]:.2f}" for r in rows[fused]))
+    del trainers
+
+
+def profile_training(name, num_envs):
+    """Where one training iteration's time goes: the host's enqueue time of
+    one rollout split into env.step, the masked reset and the rest (policy,
+    sampling, padding, GAE, packing), timed without a synchronize; then the
+    wall of an iteration (host clock, ended by a synchronize) and a
+    torch.profiler trace of one iteration for the device's side."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
+
+    env, _, trainer = torch_ppo.init_training(name, num_envs, seed=0)
+    assert trainer.fused and trainer.spec in PPO_COMPARED, trainer.spec
+    trainer.train_step()
+    torch.cuda.synchronize()
+    spent = {"step": 0.0, "reset_at": 0.0}
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    env.step, env.reset_at = timed("step", env.step), timed("reset_at", env.reset_at)
+    t0 = time.perf_counter()
+    packed, _ = trainer.collect()
+    enqueue = time.perf_counter() - t0
+    del env.step, env.reset_at  # back to the class's methods
+    trainer.update(packed)
+    torch.cuda.synchronize()
+    T = trainer.cfg.rollout_steps
+    log(f"[5] train {name}@{num_envs} rollout, host enqueue ms a step:"
+        f" env.step {spent['step'] / T * 1e3:.3f}, masked reset"
+        f" {spent['reset_at'] / T * 1e3:.3f}, policy/sampling/padding/GAE/"
+        f"packing {(enqueue - sum(spent.values())) / T * 1e3:.3f},"
+        f" all {enqueue / T * 1e3:.3f}")
+    t0 = time.perf_counter()
+    trainer.train_step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    named = {
+        tag: sum(e.time_range.elapsed_us() for e in device if key in e.name) / 1e3
+        for key, tag in (("ppo_", "ppo"), ("physics_step_kernel", "physics"),
+                         ("cast_rays_kernel", "raycast"))
+    }
+    log(f"[5] train {name}@{num_envs} one iteration: wall {wall:.2f} ms"
+        f" (without the profiler), device busy {busy:.2f} ms, idle share"
+        f" {1.0 - busy / wall:.4f}, {len(device)} device kernels, PPO kernels"
+        f" {named['ppo']:.3f} ms, physics kernel {named['physics']:.3f} ms,"
+        f" ray-cast kernel {named['raycast']:.3f} ms")
+
+
+def ppo_phase_2(errs):
+    """Phase 2 for the PPO kernel; returns (ms, plain_ms, bound_ms, by)."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
+    from vectorizedmultiagentsimulator_tpu_torch.ops import ppo_update_cuda
+
+    transport = ppo_spec(PPO_BUILDS["transport"])
+    cases = [
+        ("transport@4096 Gaussian", transport, 256),
+        ("transport@4096 flat categorical",
+         ppo_spec(PPO_BUILDS["transport flat categorical"]), 256),
+        ("transport@4096 multidiscrete",
+         ppo_spec(PPO_BUILDS["transport multidiscrete"]), 256),
+        ("1-wide action", ppo_spec(PPO_BUILDS["1-wide action"]), 256),
+        ("norm_n = 4 mb", ppo_spec(PPO_BUILDS["transport"],
+                                   norm_n=4 * 262144), 256),
+        ("ragged last tile", ppo_spec(PPO_BUILDS["transport"], lb=8,
+                                      mb=1000), 300),
+    ]
+    # A wider trunk is compiled with a smaller tile.
+    for key in ("transport hidden 96", "transport hidden 128",
+                "transport multidiscrete hidden 128"):
+        spec = ppo_spec(PPO_BUILDS[key])
+        cases.append((f"{key} (tile {ppo_update_cuda.tile_size(spec)})", spec,
+                      256))
+    # Every training run of the later phases, at its own shapes.
+    runs = [(name, num_envs, steps) for name, num_envs, steps, *_ in TRAIN_PATHS]
+    runs += [(name, num_envs, 64) for name, num_envs in TRAIN_CELLS]
+    for name, num_envs, steps in runs:
+        spec = train_spec(name, num_envs, steps)
+        if all(spec != case[1] for case in cases):
+            cases.append((f"{name}@{num_envs}, {steps} steps", spec,
+                          4 * spec.mb // spec.lb))
+    timed = None
+    for seed, (label, spec, nb_tot) in enumerate(cases):
+        inputs = ppo_random_case(spec, nb_tot, 20 + seed)
+        errs.append(ppo_vs_plain(spec, inputs, label))
+        if timed is None:
+            timed = inputs
+        if spec.hidden > 64:
+            wide_ms = cuda_time_ms(
+                lambda: ppo_update_cuda.minibatch_update(spec, *inputs), 5)
+            log(f"[2] ppo update {label}: kernel {wide_ms:.4f} ms a launch of"
+                f" {spec.mb} samples, {ppo_bound_ms(spec, inputs)[2]:.5f} ms at"
+                f" the fp32 rate")
+        del inputs
+    # The packed rollout of a real rollout of each training path of phase 3,
+    # with its own parameters and statistics.
+    for name, num_envs, steps, *_ in TRAIN_PATHS:
+        spec = train_spec(name, num_envs, steps)
+        env, _, trainer = torch_ppo.init_training(
+            name, num_envs, seed=0,
+            cfg=torch_ppo.PPOConfig(rollout_steps=steps))
+        assert trainer.spec == spec, trainer.spec
+        packed, _ = trainer.collect()
+        nb_tot, nbm = trainer.n // spec.lb, spec.mb // spec.lb
+        perm = torch.randperm(
+            nb_tot, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(9),
+        )[:nbm].to(torch.int32)
+        adv = packed[spec.obs_d + spec.act_w + 1].reshape(
+            nb_tot, spec.lb)[perm.long()]
+        stats = torch.stack([adv.mean(),
+                             1.0 / (adv.std(unbiased=False) + 1e-8)])
+        errs.append(ppo_vs_plain(
+            spec, (packed, perm, stats, trainer.model.kernel_params()),
+            f"{name}@{num_envs}, a real {steps}-step rollout"))
+        del env, trainer, packed
+
+    call = lambda: ppo_update_cuda.minibatch_update(transport, *timed)
+    plain = lambda: ppo_update_cuda.minibatch_update_plain(transport, *timed)
+    for _ in range(3):
+        call()
+        plain()
+    ms = cuda_time_ms(call, 20)
+    device_ms = ppo_device_ms(call, 5)
+    plain_ms = cuda_time_ms(plain, 5)
+    bound_ms, by, fp32_ms = ppo_bound_ms(transport, timed)
+    log(f"[2] ppo update at transport@4096 (one minibatch of {transport.mb}"
+        f" samples): kernel {ms:.4f} ms a launch (CUDA events), {device_ms:.4f}"
+        f" ms device time (update and reduce kernels), plain {plain_ms:.4f}"
+        f" ms, bound {bound_ms:.5f} ms ({by}; trunk products at the bf16"
+        f" tensor-core rate, the rest at the fp32 rate), {fp32_ms:.5f} ms if"
+        f" every product ran at the fp32 rate as this kernel's do")
+    return ms, plain_ms, bound_ms, by
+
+
 def main():
     import torch
 
@@ -453,10 +866,14 @@ def main():
     import vectorizedmultiagentsimulator_tpu_torch as vmt
     from vectorizedmultiagentsimulator_tpu_torch.ops import (
         physics_cuda,
+        ppo_update_cuda,
         raycast_cuda,
     )
     from physics_configs import CONFIGS
     from torch_helpers import build_world, random_step_inputs
+
+    # Plain versions multiply in full fp32.
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     # ---- 1: card, versions, build ---- #
     smi = subprocess.run(
@@ -467,17 +884,30 @@ def main():
     log(f"[1] torch {torch.__version__} CUDA {torch.version.cuda}"
         f" device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda m: m.build(), (physics_cuda, raycast_cuda)))
+    ppo_specs = {k: ppo_spec(v) for k, v in PPO_BUILDS.items()}
+    builds = [physics_cuda.build, raycast_cuda.build] + [
+        (lambda sp=sp: ppo_update_cuda.build(sp)) for sp in ppo_specs.values()
+    ]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        libs = list(pool.map(lambda build: build(), builds))
     physics_cuda._library()
     raycast_cuda._library()
-    log(f"[1] built {', '.join(os.path.relpath(p, ROOT) for p in libs)} in"
+    log(f"[1] built {len(libs)} libraries ("
+        f"{', '.join(sorted({os.path.basename(p) for p in libs}))}) in"
         f" {time.perf_counter() - t0:.2f} s")
-    for lib in libs:
+    tags = ["physics_step", "raycast"] + [f"ppo_update {k} {PPO_BUILDS[k]}"
+                                          for k in ppo_specs]
+    for tag, lib in zip(tags, libs):
         with open(os.path.join(os.path.dirname(lib), "build.log")) as f:
             for line in f:
                 if "registers" in line or "spill" in line:
-                    log(f"[1] ptxas {os.path.basename(lib)}: {line.strip()}")
+                    log(f"[1] ptxas {tag}: {line.strip()}")
+    for k, sp in ppo_specs.items():
+        tile = ppo_update_cuda.tile_size(sp)
+        log(f"[1] ppo_update {k}: tiles of {tile} samples,"
+            f" {ppo_update_cuda.smem_bytes(sp, tile)} bytes of dynamic shared"
+            f" memory a block, {ppo_update_cuda.flat_size(sp)} gradient"
+            f" entries and sums")
 
     # ---- 2: kernels vs plain on the card ---- #
     errs, cast_errs, times = [], [], {}
@@ -578,15 +1008,22 @@ def main():
         pos, rot, axis, origin, gtable, 1.5, "axis-aligned rays, unrotated boxes"
     ))
     del gw, pos, rot
+    ppo_errs = []
+    ppo_ms, ppo_plain_ms, ppo_bound, ppo_by = ppo_phase_2(ppo_errs)
 
     # ---- 3: the main paths ---- #
-    launches = {"physics_step": 0, "raycast": 0}
+    launches = {"physics_step": 0, "raycast": 0, "ppo_update": 0}
     for name, n_agents, obs_dim, casts in MAIN_PATHS:
         steps, cast_count = main_path(name, n_agents, obs_dim, casts)
         launches["physics_step"] += steps
         launches["raycast"] += cast_count
     for name, *_ in MAIN_PATHS:
         cuda_vs_cpu(name)
+    for path in TRAIN_PATHS:
+        updates, steps, cast_count = train_path(*path)
+        launches["ppo_update"] += updates
+        launches["physics_step"] += steps
+        launches["raycast"] += cast_count
 
     # ---- 4: rollout rates, kernels on vs off, in turns ---- #
     for name, *_ in MAIN_PATHS:
@@ -599,6 +1036,8 @@ def main():
             f" kernels {rates[True][0]:.6g} {rates[True][1]:.6g},"
             f" plain {rates[False][0]:.6g} {rates[False][1]:.6g}")
         del env, actions
+    for name, num_envs in TRAIN_CELLS:
+        train_rates(name, num_envs)
 
     # ---- 5: where a step's time goes ---- #
     for name, *_ in MAIN_PATHS:
@@ -612,6 +1051,8 @@ def main():
                 f" physics kernel {named['physics']:.4f} ms/step, ray-cast"
                 f" kernel {named['raycast']:.4f} ms/step")
         del env, actions
+    for name, num_envs in TRAIN_CELLS:
+        profile_training(name, num_envs)
 
     print(json.dumps({"kernels": [
         {
@@ -638,6 +1079,20 @@ def main():
             "plain_ms": cast_plain_ms,
             "bound_ms": cast_bound,
             "bound_by": cast_by,
+            "library_ms": None,
+        },
+        {
+            "name": "ppo_update",
+            "route": "cuda",
+            "source": "vectorizedmultiagentsimulator_tpu_torch/csrc/ppo_update.cu",
+            "replaces": "vectorizedmultiagentsimulator_tpu/ops/ppo_update_pallas.py:291",
+            "launches": launches["ppo_update"],
+            "max_abs_err": max(ppo_errs),
+            "ms": ppo_ms,
+            "plain_ms": ppo_plain_ms,
+            "bound_ms": ppo_bound,
+            "bound_by": ppo_by,
+            # No single PyTorch call computes a PPO minibatch's gradients.
             "library_ms": None,
         },
     ]}), flush=True)

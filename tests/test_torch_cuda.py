@@ -1,5 +1,6 @@
-"""The physics and ray-cast kernels on the card against their plain
-versions.  These tests need an NVIDIA GPU and nvcc; elsewhere they skip.
+"""The physics, ray-cast and PPO-update kernels on the card against their
+plain versions, and the masked reset and the trainer under the host-sync
+check.  These tests need an NVIDIA GPU and nvcc; elsewhere they skip.
 This file imports no JAX, so on a machine with PyTorch only it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -14,10 +15,20 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 from physics_configs import CONFIGS
-from torch_helpers import MANY_ENTITIES, build_world, random_step_inputs
+from torch_helpers import (
+    MANY_ENTITIES,
+    build_world,
+    random_ppo_inputs,
+    random_step_inputs,
+)
 
 import vectorizedmultiagentsimulator_tpu_torch as vmt_torch
-from vectorizedmultiagentsimulator_tpu_torch.ops import physics_cuda, raycast_cuda
+from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
+from vectorizedmultiagentsimulator_tpu_torch.ops import (
+    physics_cuda,
+    ppo_update_cuda,
+    raycast_cuda,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -179,3 +190,130 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
             (12, 8), device="cuda").t(), 6, table, 1.5)
     with pytest.raises(ValueError, match="origin entity"):
         raycast_cuda.fused_cast_rays(pos, rot, angles, 7, table, 1.5)
+
+
+@pytest.mark.parametrize("scenario", [
+    "transport", "simple_spread", "navigation", "flocking", "balance",
+    "dispersion", "simple_speaker_listener"])
+def test_masked_reset_no_sync(cuda, scenario):
+    """``reset_at`` with a bool mask (the trainer's reset in every step)
+    reads nothing from the device and leaves the other envs alone."""
+    env = vmt_torch.make_env(scenario, num_envs=B, device="cuda", seed=0)
+    env.step(env.get_random_actions())
+    mask = torch.rand((B,), device="cuda") > 0.5
+    before = env.world.state.pos.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        obs = env.reset_at(mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = env.world.state.pos
+    assert torch.equal(after[~mask], before[~mask])
+    assert bool((env.steps == torch.where(mask, 0, 1)).all())
+    assert all(bool(torch.isfinite(o).all()) for o in obs)
+
+
+# Per gradient, as a share of its largest entry, and per loss sum: fp32
+# sums of either sign in another order, and the card's tanhf/expf against
+# the library's (see chip_smoke.py).
+PPO_GRAD_TOL, PPO_SUM_RTOL, PPO_SUM_ATOL_PER_SAMPLE = 2e-3, 1e-4, 1e-6
+
+
+@pytest.mark.parametrize("name,fields,nb_tot", [
+    ("gaussian", dict(obs_d=15, act_w=2, hidden=64, lb=256, mb=8192), 64),
+    ("flat_categorical",
+     dict(obs_d=15, act_w=1, hidden=64, lb=256, mb=8192, n_logits=9), 64),
+    ("multidiscrete",
+     dict(obs_d=15, act_w=2, hidden=64, lb=256, mb=8192, n_logits=3), 64),
+    ("ragged_tile_norm_n",
+     dict(obs_d=6, act_w=1, hidden=16, lb=8, mb=1000, norm_n=4000), 300),
+    # Wider trunks run with tiles of 64, 32 and 16 samples.
+    ("hidden96", dict(obs_d=15, act_w=2, hidden=96, lb=256, mb=8192), 64),
+    ("hidden128", dict(obs_d=15, act_w=2, hidden=128, lb=256, mb=8192), 64),
+    ("hidden128_multidiscrete",
+     dict(obs_d=15, act_w=2, hidden=128, lb=8, mb=1000, n_logits=3), 300),
+])
+def test_ppo_kernel_matches_plain(cuda, name, fields, nb_tot):
+    spec = ppo_update_cuda.PPOUpdateSpec(clip_eps=0.2, vf_coef=0.5,
+                                         ent_coef=0.01, **fields)
+    packed, perm, stats, params = random_ppo_inputs(spec, nb_tot, seed=21)
+    inputs = (torch.as_tensor(packed, device="cuda"),
+              torch.as_tensor(perm, device="cuda"),
+              torch.as_tensor(stats, device="cuda"),
+              tuple(torch.as_tensor(p, device="cuda") for p in params))
+    before = ppo_update_cuda.LAUNCHES
+    got_g, got_s = ppo_update_cuda.minibatch_update(spec, *inputs)
+    rep_g, rep_s = ppo_update_cuda.minibatch_update(spec, *inputs)
+    ref_g, ref_s = ppo_update_cuda.minibatch_update_plain(spec, *inputs)
+    torch.cuda.synchronize()
+    assert ppo_update_cuda.LAUNCHES == before + 2
+    for a, b in zip(got_g + got_s, rep_g + rep_s):
+        assert torch.equal(a, b)  # no float atomics: the same bits
+    for i, (g, r) in enumerate(zip(got_g, ref_g)):
+        assert g.shape == r.shape
+        assert float((g - r).abs().max()) <= PPO_GRAD_TOL * float(
+            r.abs().max()) + 1e-12, f"grad {i}"
+    for g, r in zip(got_s, ref_s):
+        assert abs(float(g) - float(r)) <= (
+            PPO_SUM_RTOL * abs(float(r)) + PPO_SUM_ATOL_PER_SAMPLE * spec.mb)
+    with pytest.raises(ValueError, match="mixed devices"):
+        ppo_update_cuda.minibatch_update(spec, inputs[0].cpu(), *inputs[1:])
+    with pytest.raises(TypeError, match="int32"):
+        ppo_update_cuda.minibatch_update(spec, inputs[0], inputs[1].long(),
+                                         *inputs[2:])
+
+
+@pytest.mark.parametrize("scenario,kwargs,casts", [
+    ("transport", {}, 0),
+    ("transport", dict(continuous_actions=False, multidiscrete_actions=True),
+     0),
+    ("navigation", {}, 8),
+])
+def test_train_step_launch_counts_no_sync(cuda, scenario, kwargs, casts):
+    """Two training iterations on the card with no host sync: one PPO
+    launch per epoch and minibatch, one physics launch per rollout step,
+    two casts per LIDAR and step (the step's observation and the masked
+    reset's)."""
+    cfg = torch_ppo.PPOConfig(rollout_steps=8, epochs=2, minibatches=2,
+                              fused_block=256)
+    env, step, trainer = torch_ppo.init_training(scenario, 256, 0, cfg,
+                                                 **kwargs)
+    assert trainer.fused and env.device.type == "cuda"
+    trainer, _ = step(trainer)  # builds the kernel for this head
+    before = [p.detach().clone() for p in trainer.model.ordered_parameters()]
+    torch.cuda.synchronize()
+    counts = (ppo_update_cuda.LAUNCHES, physics_cuda.LAUNCHES,
+              raycast_cuda.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            trainer, metrics = step(trainer)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ppo_update_cuda.LAUNCHES == counts[0] + 2 * 4
+    assert physics_cuda.LAUNCHES == counts[1] + 2 * 8
+    assert raycast_cuda.LAUNCHES == counts[2] + 2 * 8 * casts
+    assert np.isfinite(float(metrics["loss"]))
+    assert np.isfinite(float(metrics["mean_reward"]))
+    assert any(not torch.equal(p, b) for p, b in
+               zip(trainer.model.ordered_parameters(), before))
+
+
+def test_ppo_kernel_refuses_a_trunk_it_does_not_take(cuda):
+    """On the card a spec the kernel does not take raises, in the wrapper
+    and when a trainer is built: nothing trains through another path."""
+    spec = ppo_update_cuda.PPOUpdateSpec(
+        obs_d=15, act_w=2, hidden=256, lb=256, mb=8192, clip_eps=0.2,
+        vf_coef=0.5, ent_coef=0.01)
+    packed, perm, stats, params = random_ppo_inputs(spec, 64, seed=22)
+    with pytest.raises(ValueError, match="does not take"):
+        ppo_update_cuda.minibatch_update(
+            spec, torch.as_tensor(packed, device="cuda"),
+            torch.as_tensor(perm, device="cuda"),
+            torch.as_tensor(stats, device="cuda"),
+            tuple(torch.as_tensor(p, device="cuda") for p in params))
+    with pytest.raises(ValueError, match="does not take"):
+        torch_ppo.init_training(
+            "transport", 256, 0,
+            torch_ppo.PPOConfig(rollout_steps=8, hidden=256, fused_block=256))

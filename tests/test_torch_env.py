@@ -203,3 +203,120 @@ def test_rollout_and_reseed(num_envs=4, n_steps=3):
     replay = rollout(env, n_steps, actions)
     for a, b in zip(traj["obs"][-1], replay["obs"][-1]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+SCENARIOS = ["transport", "simple_spread", "navigation", "flocking", "balance",
+             "dispersion", "simple_speaker_listener"]
+
+
+def _state_rows(env):
+    s = env.world.state
+    return torch.cat([s.pos.flatten(1), s.vel.flatten(1), s.rot.flatten(1)], 1)
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS)
+def test_masked_reset_changes_only_masked_envs(scenario, num_envs=6):
+    """``reset_at`` with a ``[B]`` bool tensor: the envs it names are reset
+    (steps to 0, new spawn), the others keep their state to the bit, and
+    the observations of all envs come back."""
+    env = vmt_torch.make_env(scenario, num_envs=num_envs, device="cpu", seed=0)
+    for _ in range(3):
+        env.step(env.get_random_actions())
+    before = _state_rows(env).clone()
+    mask = torch.tensor([False, True, False, True, True, False])
+    obs = env.reset_at(mask)
+    after = _state_rows(env)
+    assert torch.equal(after[~mask], before[~mask])
+    assert not any(torch.equal(after[i], before[i]) for i in (1, 3, 4))
+    assert torch.equal(env.steps, torch.where(mask, 0, 3))
+    assert len(obs) == env.n_agents
+    assert all(o.shape[0] == num_envs and bool(torch.isfinite(o).all())
+               for o in obs)
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS)
+def test_one_hot_mask_equals_reset_at_index(scenario, num_envs=5):
+    """From the same generator state, ``reset_at(i)`` and ``reset_at`` of
+    the one-hot mask of ``i`` leave the same state."""
+    envs = [vmt_torch.make_env(scenario, num_envs=num_envs, device="cpu",
+                               seed=3) for _ in range(3)]
+    actions = envs.pop().get_random_actions()  # draws from its own generator
+    for env in envs:
+        env.step(actions)
+    obs_i = envs[0].reset_at(2)
+    obs_m = envs[1].reset_at(torch.arange(num_envs) == 2)
+    assert torch.equal(_state_rows(envs[0]), _state_rows(envs[1]))
+    for a, b in zip(obs_i, obs_m):
+        assert torch.equal(a, b)
+
+
+def _spawn_world(batch, seed=0):
+    from vectorizedmultiagentsimulator_tpu_torch.core import Agent, World
+
+    world = World(batch, "cpu")
+    world.add_agent(Agent(name="a"))
+    world.finalize(seed=seed)
+    return world
+
+
+def test_spawner_respects_min_dist_with_and_without_a_mask():
+    from vectorizedmultiagentsimulator_tpu_torch.utils import ScenarioUtils
+
+    B, M, min_d = 64, 5, 0.25
+    world = _spawn_world(B)
+    occupied = torch.rand((B, 2, 2)) * 2 - 1
+    for env_index in (None, torch.rand(B) > 0.5):
+        pos = ScenarioUtils.find_random_positions_for_entities(
+            occupied, M, world, min_d, (-1, 1), (-1, 1), env_index=env_index)
+        assert pos.shape == (B, M, 2)
+        assert bool((pos.abs() <= 1).all())
+        points = torch.cat([occupied, pos], dim=1)
+        dist = torch.cdist(points, points)[:, 2:]  # new entities to all
+        dist[:, torch.arange(M), torch.arange(M) + 2] = float("inf")
+        assert float(dist.min()) >= min_d
+    assert int(world.spawn_give_ups) == 0
+    # The masked path's rounds come from static facts only.
+    assert ScenarioUtils.spawn_rounds(2, M, min_d, (-1, 1), (-1, 1), 16) == 2
+    assert ScenarioUtils.spawn_rounds(0, 1, min_d, (-1, 1), (-1, 1), 16) == 1
+
+
+def test_spawner_counts_give_ups_on_the_device():
+    """A world too small for its entities: a masked respawn stops after its
+    fixed rounds, places the entities at the give-up proposals and counts
+    them, for the masked envs only."""
+    from vectorizedmultiagentsimulator_tpu_torch.utils import ScenarioUtils
+
+    B, M = 8, 3
+    world = _spawn_world(B)
+    mask = torch.arange(B) < 4
+    pos = ScenarioUtils.find_random_positions_for_entities(
+        torch.zeros((B, 1, 2)), M, world, 10.0, (-1, 1), (-1, 1),
+        env_index=mask)
+    assert bool(torch.isfinite(pos).all()) and bool((pos.abs() <= 1).all())
+    assert int(world.spawn_give_ups) == 4 * M
+    # Distinct give-up proposals, so entities never collapse onto a point.
+    assert float(torch.cdist(pos, pos)[:, 0, 1:].min()) > 0
+
+
+@pytest.mark.parametrize("proposals", [None, 4])
+def test_spawner_replace_mask_keeps_rows(proposals):
+    """Per-step respawns: rows where ``replace_mask`` is False keep their
+    current position and still block the others."""
+    from vectorizedmultiagentsimulator_tpu_torch.utils import ScenarioUtils
+
+    B, M, min_d = 32, 4, 0.3
+    world = _spawn_world(B, seed=1)
+    current = ScenarioUtils.find_random_positions_for_entities(
+        torch.zeros((B, 0, 2)), M, world, min_d, (-1, 1), (-1, 1))
+    replace = torch.rand((B, M)) > 0.5
+    new = ScenarioUtils.find_random_positions_for_entities(
+        torch.zeros((B, 0, 2)), M, world, min_d, (-1, 1), (-1, 1),
+        current_positions=current, replace_mask=replace,
+        proposals_per_round=proposals, env_index=torch.ones(B, dtype=torch.bool),
+    )
+    assert torch.equal(new[~replace], current[~replace])
+    assert not bool((new[replace] == current[replace]).all(dim=-1).any())
+    dist = torch.cdist(new, new)
+    dist[:, torch.arange(M), torch.arange(M)] = float("inf")
+    assert float(dist.min()) >= min_d
+    assert int(world.spawn_give_ups) == 0

@@ -1,7 +1,8 @@
 """The port's scenarios (transport and simple_spread; the LIDAR worlds
-navigation and flocking; balance): replay of the reference goldens, live
-parity with the JAX env from one injected state, same-seed determinism,
-and the heuristic policies against the JAX package's."""
+navigation and flocking; balance; dispersion and
+simple_speaker_listener): replay of the reference goldens, live parity
+with the JAX env from one injected state, same-seed determinism, and the
+heuristic policies against the JAX package's."""
 import ast
 import os
 import sys
@@ -21,7 +22,8 @@ from vectorizedmultiagentsimulator_tpu_torch.utils import (
 )
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
-SCENARIOS = ["simple_spread", "transport", "navigation", "flocking", "balance"]
+SCENARIOS = ["simple_spread", "transport", "navigation", "flocking", "balance",
+             "dispersion", "simple_speaker_listener"]
 # test_scenario_parity.py's default tolerance.
 BASE, GROWTH, MAX_FRAC = 5e-4, 1.6, 0.25
 

@@ -86,3 +86,36 @@ def jax_state_arrays(jax_state):
     out = {f: np.asarray(getattr(jax_state, f)) for f in STATE_FIELDS}
     out["extras"] = {k: np.asarray(v) for k, v in jax_state.extras.items()}
     return out
+
+
+def random_ppo_inputs(spec, nb_tot, seed):
+    """Inputs of one PPO minibatch update for ``spec`` (a ``PPOUpdateSpec``
+    of either package), as numpy arrays drawn from ``seed``: ``(packed_fm
+    [D, nb_tot * lb], perm_mb [mb // lb] int32, adv_stats [2], params)``.
+    In discrete mode every dim has 1..n_logits valid choices (at least 2
+    for a flat head) and the stored action is one of them; in continuous
+    mode a fifth of the action mask is 0."""
+    rng = np.random.RandomState(seed)
+    od, aw, H = spec.obs_d, spec.act_w, spec.hidden
+    hw = spec.mask_w
+    n = nb_tot * spec.lb
+    packed = rng.randn(spec.d, n).astype(np.float32)
+    mask0 = od + aw + 3
+    if spec.discrete:
+        nl = spec.n_logits
+        count = rng.randint(1 if aw > 1 else 2, nl + 1, (aw, n))
+        packed[mask0:] = np.where(
+            np.arange(nl)[None, :, None] < count[:, None, :], 0.0, -1e9
+        ).reshape(aw * nl, n)
+        packed[od:od + aw] = rng.randint(0, nl, (aw, n)) % count
+    else:
+        packed[mask0:] = rng.rand(aw, n) > 0.2
+    packed[od + aw] *= 0.3  # old log-probs near the new ones
+    perm = rng.permutation(nb_tot)[: spec.mb // spec.lb].astype(np.int32)
+    adv = packed[od + aw + 1].reshape(nb_tot, spec.lb)[perm].ravel()
+    stats = np.array([adv.mean(), 1.0 / (adv.std() + 1e-8)], np.float32)
+    shapes = ((od, H), (H, 1), (H, H), (H, 1), (H, hw), (hw, 1), (hw, 1),
+              (od, H), (H, 1), (H, 1), (1, 1))
+    params = [(rng.randn(*s) * 0.3).astype(np.float32) for s in shapes]
+    params[6] *= 0.1  # log_std
+    return packed, perm, stats, params

@@ -264,6 +264,12 @@ class World:
 
         self.generator = torch.Generator(device=self._device)
         self.generator.manual_seed(seed if seed is not None else 0)
+        # Entities the rejection spawner placed at its give-up value, summed
+        # over every reset so far; a device tensor, so counting never reads
+        # the device.
+        self.spawn_give_ups = torch.zeros(
+            (), dtype=torch.long, device=self._device
+        )
         # Per-agent u capacity: a scenario may write a u wider than
         # action_size as long as the dynamics model consumes it.
         self._u_widths = [a.action_size for a in self._agents]

@@ -101,11 +101,17 @@ class Environment:
 
     def reset_at(
         self,
-        index: int,
+        index,
         return_observations: bool = True,
         return_info: bool = False,
         return_dones: bool = False,
     ):
+        """Reset the envs that ``index`` names: an int, an int tensor of
+        env indices, or a ``[num_envs]`` bool tensor (the counterpart of the
+        JAX package's ``reset_at_fn(state, mask)``; a training loop passes
+        the step's ``dones``).  Returns the observations of all envs.  With
+        a tensor nothing here reads the device: the spawner runs a fixed
+        number of rounds under a mask."""
         self._check_batch_index(index)
         mask = env_index_to_mask(index, self.num_envs, self.device)
         outs = self._reset_impl(mask)

@@ -47,25 +47,36 @@ def find_nvcc() -> str:
     )
 
 
-def _source_hash(source: str) -> str:
+def _flags(defines, fmad: bool):
+    """``NVCC_FLAGS`` with ``-D`` for each ``name=value`` of ``defines``;
+    ``fmad`` lets a kernel that is held to a tolerance, not to its plain
+    version's bits, contract its multiply-adds."""
+    flags = [f for f in NVCC_FLAGS if not (fmad and f == "-fmad=false")]
+    return flags + [f"-D{d}" for d in defines]
+
+
+def _source_hash(source: str, flags) -> str:
     h = hashlib.sha256()
     with open(source, "rb") as f:
         h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
-def build(source: str) -> str:
+def build(source: str, defines=(), fmad: bool = False) -> str:
     """Compile ``source`` (a path under ``csrc/``) into a shared library if
-    this source has not been built yet; returns the library's path."""
+    this source has not been built yet with these ``defines``
+    (``"NAME=value"`` strings, for a source that is specialised at compile
+    time); returns the library's path."""
     name = os.path.splitext(os.path.basename(source))[0]
-    out_dir = os.path.join(BUILD_DIR, _source_hash(source))
+    flags = _flags(defines, fmad)
+    out_dir = os.path.join(BUILD_DIR, _source_hash(source, flags))
     lib_path = os.path.join(out_dir, f"libvmt_{name}.so")
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, source]
+    cmd = [find_nvcc(), *flags, "-o", tmp, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(

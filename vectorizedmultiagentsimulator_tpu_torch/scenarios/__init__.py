@@ -11,9 +11,14 @@ import importlib
 
 _REGISTRY = {
     "balance": "vectorizedmultiagentsimulator_tpu_torch.scenarios.balance",
+    "dispersion": "vectorizedmultiagentsimulator_tpu_torch.scenarios.dispersion",
     "flocking": "vectorizedmultiagentsimulator_tpu_torch.scenarios.flocking",
     "navigation": "vectorizedmultiagentsimulator_tpu_torch.scenarios.navigation",
     "transport": "vectorizedmultiagentsimulator_tpu_torch.scenarios.transport",
+    "simple_speaker_listener": (
+        "vectorizedmultiagentsimulator_tpu_torch.scenarios.mpe"
+        ".simple_speaker_listener"
+    ),
     "simple_spread": (
         "vectorizedmultiagentsimulator_tpu_torch.scenarios.mpe.simple_spread"
     ),

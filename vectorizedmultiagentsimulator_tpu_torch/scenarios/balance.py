@@ -133,16 +133,19 @@ class Scenario(BaseScenario):
         )
 
         for i, agent in enumerate(self.world.agents):
-            offset = torch.tensor(
+            # torch.full, not a tensor made from a list: a masked reset
+            # copies nothing from the host.
+            offset = torch.cat(
                 [
-                    -(self.line_length - agent.shape.radius) / 2
-                    + i
-                    * (self.line_length - agent.shape.radius)
-                    / (self.n_agents - 1),
-                    -self.agent_radius * 2,
+                    full(
+                        -(self.line_length - agent.shape.radius) / 2
+                        + i
+                        * (self.line_length - agent.shape.radius)
+                        / (self.n_agents - 1)
+                    ),
+                    full(-self.agent_radius * 2),
                 ],
-                dtype=torch.float32,
-                device=dev,
+                dim=1,
             )
             agent.set_pos(line_pos + offset, batch_index=env_index)
         self._line.set_pos(line_pos, batch_index=env_index)
@@ -154,15 +157,16 @@ class Scenario(BaseScenario):
             line_pos + package_rel_pos, batch_index=env_index
         )
         self._floor.set_pos(
-            torch.tensor(
+            torch.cat(
                 [
-                    0,
-                    -self.world.y_semidim
-                    - self._floor.shape.width / 2
-                    - self.agent_radius,
+                    full(0.0),
+                    full(
+                        -self.world.y_semidim
+                        - self._floor.shape.width / 2
+                        - self.agent_radius
+                    ),
                 ],
-                dtype=torch.float32,
-                device=dev,
+                dim=1,
             ),
             batch_index=env_index,
         )

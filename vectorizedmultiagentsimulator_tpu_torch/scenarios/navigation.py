@@ -147,6 +147,7 @@ class Scenario(BaseScenario):
             self.min_distance_between_entities,
             (-self.world_spawning_x, self.world_spawning_x),
             (-self.world_spawning_y, self.world_spawning_y),
+            env_index=env_index,
         )
         goal_poses = [
             goal_positions[:, i] for i in range(len(self.world.agents))

@@ -8,6 +8,7 @@ arbitrary leading batch dimensions, so one function serves ``[B,2]``,
 """
 from __future__ import annotations
 
+import math
 from enum import Enum
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -155,6 +156,9 @@ class ScenarioUtils:
 
     MAX_SPAWN_TRIES = 1000
     SPAWN_PROPOSALS_PER_ROUND = 16
+    # A masked respawn's fixed rounds leave an entity unplaced with at most
+    # this probability (see spawn_rounds).
+    SPAWN_FAILURE_BOUND = 1e-9
 
     @staticmethod
     def spawn_entities_randomly(
@@ -181,9 +185,34 @@ class ScenarioUtils:
             min_dist_between_entities,
             x_bounds,
             y_bounds,
+            env_index=env_index,
         )
         for i, entity in enumerate(entities):
             entity.set_pos(new_pos[:, i], batch_index=env_index)
+
+    @staticmethod
+    def spawn_rounds(n_occupied, n_new, min_dist, x_bounds, y_bounds,
+                     proposals_per_round) -> int:
+        """The fixed number of proposal rounds of a masked respawn, from
+        static facts only.  One proposal lands within ``min_dist`` of one
+        of the at most ``n_occupied + n_new - 1`` blocking points with
+        probability at most ``p = blockers * pi * min_dist^2 / area``, so
+        ``d`` draws all fail with probability at most ``p^d``; the rounds
+        cover the least ``d`` with ``p^d <= SPAWN_FAILURE_BOUND``, and never
+        more than ``MAX_SPAWN_TRIES`` draws."""
+        K = int(proposals_per_round)
+        most = max(1, ScenarioUtils.MAX_SPAWN_TRIES // K)
+        area = (x_bounds[1] - x_bounds[0]) * (y_bounds[1] - y_bounds[0])
+        blockers = n_occupied + n_new - 1
+        if min_dist <= 0 or blockers <= 0 or area <= 0:
+            return 1
+        p = blockers * math.pi * min_dist**2 / area
+        if p >= 1.0:
+            return most
+        draws = math.ceil(
+            math.log(ScenarioUtils.SPAWN_FAILURE_BOUND) / math.log(p)
+        )
+        return max(1, min(most, -(-draws // K)))
 
     @staticmethod
     @torch.no_grad()
@@ -194,67 +223,132 @@ class ScenarioUtils:
         min_dist_between_entities: float,
         x_bounds: Tuple[float, float],
         y_bounds: Tuple[float, float],
+        current_positions: Optional[Tensor] = None,
+        replace_mask: Optional[Tensor] = None,
+        proposals_per_round: Optional[int] = None,
+        env_index=None,
     ) -> Tensor:
         """``[B, n_new, 2]`` positions, each ``>= min_dist`` from
         ``occupied_positions`` [B, O, 2] and from one another.
 
         Rejection sampling as in the JAX package: each round draws ``K``
         iid proposals per entity and keeps, per entity and env, the first
-        proposal clear of the occupied set and of the entities placed
-        before it.  The loop's exit test reads the device on the host,
-        which is acceptable here because spawning runs at reset only.
-        After ``MAX_SPAWN_TRIES`` draws the last proposal is accepted.
+        proposal clear of the occupied set, of the entities placed before
+        it and, when ``current_positions`` [B, n_new, 2] is given, of the
+        not yet replaced entities' current positions.  Rows where
+        ``replace_mask`` [B, n_new] is False keep their current position and
+        still block the others (per-step respawns).  With
+        ``current_positions`` and a positive ``min_dist`` all entities scan
+        one shared proposal stream, as in the JAX package: a proposal an
+        earlier entity accepts is within ``min_dist`` of that entity and so
+        invalid for every later one, which gives the joint law of separate
+        streams from ``n_new`` times fewer draws.  ``proposals_per_round``
+        (default ``SPAWN_PROPOSALS_PER_ROUND``) only chunks the stream.
+
+        How many rounds run depends on ``env_index``:
+
+        * ``None`` (a full reset): rounds repeat until every entity of
+          every env is placed or ``MAX_SPAWN_TRIES`` draws were made, as in
+          the JAX package.  The exit test reads the device on the host,
+          once a round.
+        * an index or a ``[B]`` bool mask (``reset_at``, the trainer's
+          reset in every step): exactly :meth:`spawn_rounds` rounds,
+          a number fixed on the host from the entity counts, ``min_dist``
+          and the bounds, so nothing reads the device.  This differs from
+          the JAX package, whose on-device ``while_loop`` always goes on to
+          1000 draws before it gives up: here an entity gives up once the
+          fixed rounds are over, which the choice of rounds makes rarer
+          than ``SPAWN_FAILURE_BOUND`` per entity and env whenever the
+          blocking discs cover less than the whole area.
+
+        An entity that gives up takes the last round's proposal
+        ``(K - 1 - i) % K`` (distinct per entity).  Give-ups, counted over
+        the envs that ``env_index`` names, are added to the device tensor
+        ``world.spawn_give_ups``.
         """
         B = occupied_positions.shape[0]
         M = int(n_new)
-        K = ScenarioUtils.SPAWN_PROPOSALS_PER_ROUND
+        O = occupied_positions.shape[1]
+        K = int(
+            proposals_per_round
+            if proposals_per_round is not None
+            else ScenarioUtils.SPAWN_PROPOSALS_PER_ROUND
+        )
+        assert K >= 1
         device = occupied_positions.device
         if not M:
             return torch.zeros((B, 0, 2), device=device)
         min_d = min_dist_between_entities
-        lo = torch.tensor([x_bounds[0], y_bounds[0]], device=device)
-        hi = torch.tensor([x_bounds[1], y_bounds[1]], device=device)
-        eff = [torch.zeros((B, 2), device=device) for _ in range(M)]
-        ok = [torch.zeros((B,), dtype=torch.bool, device=device) for _ in range(M)]
-        tries = 0
-        while True:
+        has_current = current_positions is not None
+        if has_current:
+            eff = current_positions.to(torch.float32).clone()
+            if replace_mask is not None:
+                ok = ~replace_mask.to(torch.bool)
+            else:
+                ok = torch.zeros((B, M), dtype=torch.bool, device=device)
+        else:
+            eff = torch.zeros((B, M, 2), device=device)
+            ok = torch.zeros((B, M), dtype=torch.bool, device=device)
+        share = has_current and min_d > 0 and M > 1
+        occupied_blocks = torch.ones((B, O), dtype=torch.bool, device=device)
+
+        def one_round():
             u = torch.rand(
-                (B, M, K, 2), generator=world.generator, device=device
+                (B, 1 if share else M, K, 2),
+                generator=world.generator,
+                device=device,
             )
-            cands = lo + u * (hi - lo)
+            # Python scalars only: a tensor made from a list would be a
+            # host-to-device copy, which a masked reset must not make.
+            cands = torch.stack(
+                [
+                    x_bounds[0] + u[..., 0] * (x_bounds[1] - x_bounds[0]),
+                    y_bounds[0] + u[..., 1] * (y_bounds[1] - y_bounds[0]),
+                ],
+                dim=-1,
+            )
             for i in range(M):
-                cand = cands[:, i]  # [B, K, 2]
-                if occupied_positions.shape[1]:
-                    d_occ = torch.linalg.norm(
-                        occupied_positions[:, None] - cand[:, :, None], dim=-1
-                    )  # [B, K, O]
-                    valid = torch.all(d_occ >= min_d, dim=-1)
-                else:
-                    valid = torch.ones((B, K), dtype=torch.bool, device=device)
-                for j in range(M):
-                    if j == i:
-                        continue
-                    d_j = torch.linalg.norm(eff[j][:, None] - cand, dim=-1)
-                    valid = valid & ((d_j >= min_d) | ~ok[j][:, None])
+                cand = cands[:, 0 if share else i]  # [B, K, 2]
+                # Entities earlier in the fold hold this round's update,
+                # later ones their position from before the round.
+                points = torch.cat([occupied_positions, eff], dim=1)
+                present = torch.ones_like(ok) if has_current else ok.clone()
+                present[:, i] = False
+                blocks = torch.cat([occupied_blocks, present], dim=1)
+                dist = torch.linalg.norm(
+                    points[:, None] - cand[:, :, None], dim=-1
+                )  # [B, K, O + M]
+                valid = torch.all(
+                    (dist >= min_d) | ~blocks[:, None], dim=-1
+                )  # [B, K]
                 found = valid.any(dim=1)
                 first = torch.argmax(valid.to(torch.float32), dim=1)
                 chosen = torch.gather(
                     cand, 1, first[:, None, None].expand(B, 1, 2)
                 )[:, 0]
-                # Give-up value after MAX_SPAWN_TRIES: a distinct proposal
-                # per entity, so entities never collapse onto one point.
                 chosen = torch.where(
                     found[:, None], chosen, cand[:, (K - 1 - i) % K]
                 )
-                eff[i] = torch.where(ok[i][:, None], eff[i], chosen)
-                ok[i] = ok[i] | found
-            tries += K
-            if (
-                bool(torch.stack(ok, dim=1).all())
-                or tries >= ScenarioUtils.MAX_SPAWN_TRIES
+                eff[:, i] = torch.where(ok[:, i, None], eff[:, i], chosen)
+                ok[:, i] |= found
+
+        if env_index is None:
+            tries = 0
+            while True:
+                one_round()
+                tries += K
+                if bool(ok.all()) or tries >= ScenarioUtils.MAX_SPAWN_TRIES:
+                    break
+            gave_up = ~ok
+        else:
+            for _ in range(
+                ScenarioUtils.spawn_rounds(O, M, min_d, x_bounds, y_bounds, K)
             ):
-                break
-        return torch.stack(eff, dim=1)
+                one_round()
+            mask = env_index_to_mask(env_index, B, device)
+            gave_up = ~ok & mask[:, None]
+        world.spawn_give_ups += gave_up.sum()
+        return eff
 
     @staticmethod
     def check_kwargs_consumed(kwargs: Dict, warn: bool = True):
@@ -306,3 +400,42 @@ def _loaded(name, array, like: Tensor) -> Tensor:
             f" {tuple(like.shape)}"
         )
     return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+
+
+# Where each parameter of ``examples/torch_ppo.ActorCritic`` (in the order of
+# its ``NAMES``) lies in the parameter tree of the JAX package's flax
+# ``ActorCritic``: dense kernels ``[in, out]``, biases and ``log_std`` 1-D.
+PPO_PARAM_PATHS = (
+    ("Dense_0", "kernel"), ("Dense_0", "bias"),
+    ("Dense_1", "kernel"), ("Dense_1", "bias"),
+    ("Dense_2", "kernel"), ("Dense_2", "bias"),
+    ("log_std",),
+    ("Dense_3", "kernel"), ("Dense_3", "bias"),
+    ("Dense_4", "kernel"), ("Dense_4", "bias"),
+)
+
+
+@torch.no_grad()
+def ppo_params_from_numpy(model, tree: Dict):
+    """Load the flax parameter tree of the JAX package's ``ActorCritic``,
+    given as numpy arrays (``{"params": {"Dense_0": {"kernel", "bias"}, ...,
+    "log_std"}}``, with or without the outer ``"params"``), into the port's
+    ``ActorCritic``.  Shapes must match."""
+    tree = tree.get("params", tree)
+    for param, path in zip(model.ordered_parameters(), PPO_PARAM_PATHS):
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        param.copy_(_loaded("/".join(path), leaf, param))
+
+
+def ppo_params_to_numpy(model) -> Dict:
+    """The port's ``ActorCritic`` parameters as the flax tree that
+    :func:`ppo_params_from_numpy` reads."""
+    tree: Dict = {}
+    for param, path in zip(model.ordered_parameters(), PPO_PARAM_PATHS):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = param.detach().cpu().numpy().copy()
+    return {"params": tree}
