@@ -5,10 +5,11 @@
 
 Phases, one line each:
   1. the card (nvidia-smi name and power limit), the torch/CUDA versions,
-     and the build of the three kernels, csrc/physics_step.cu,
-     csrc/raycast.cu and csrc/ppo_update.cu (the last once per network
-     shape of PPO_BUILDS; one nvcc each, all started together), with ptxas'
-     registers and spills and the PPO kernel's shared memory;
+     and the build of the four kernels, csrc/physics_step.cu,
+     csrc/raycast.cu, csrc/football_policy.cu and csrc/ppo_update.cu (the
+     last once per network shape of PPO_BUILDS; one nvcc each, all started
+     together), with ptxas' registers and spills and the PPO kernel's
+     shared memory;
   2. each kernel against its plain PyTorch version from identical inputs
      on the card.  Physics, one step: the `spheres`, `clamps`,
      `boxes_lines`, `hollow_box` and `gravity_friction` worlds of
@@ -28,25 +29,34 @@ Phases, one line each:
      phase 3 (transport@4096 over 64 steps, navigation@4096 over 16); max
      |kernel - plain| of every gradient and sum, two launches bit-identical,
      then the time of a launch (CUDA events and the profiler's device
-     time), its bound and the plain version's time;
+     time), its bound and the plain version's time.  Football's planner:
+     random inputs at 30k envs for 1, 3 and 5 teammates, with and without
+     value noise, and the real inputs of football 5v5@30k after 10 steps;
+     for each, max |kernel - plain| over the rows that pick the plain
+     version's candidate, the rows that pick another (each must be a near
+     tie: its value within 1e-6 of the best), the time of a launch (CUDA
+     events and device time), the plain version's time and the bound;
   3. the main paths: make_env(name, num_envs=30_000, device="cuda") for
-     transport, simple_spread, navigation, flocking and balance, reset,
-     100 env.step calls under torch.cuda.set_sync_debug_mode("error") (any
-     host sync fails the run); outputs finite and of the JAX package's
-     shapes; exactly one physics launch per step and one ray-cast launch
-     per LIDAR measure (4 a step in navigation and flocking, none
-     elsewhere), each count set to 0 just before the run and read just
-     after.  Then each CUDA env against the CPU env (plain path) from one
-     state over 10 steps at 64 envs.  Then training:
+     transport, simple_spread, navigation, flocking, balance and football
+     (5v5, the red team's scripted AI), reset, 100 env.step calls under
+     torch.cuda.set_sync_debug_mode("error") (any host sync fails the run);
+     outputs finite and of the JAX package's shapes; exactly one physics
+     launch per step, one ray-cast launch per LIDAR measure (4 a step in
+     navigation and flocking, none elsewhere) and one planner launch per
+     AI team and step (football), each count set to 0 just before the run
+     and read just after.  Then each CUDA env against the CPU env (plain
+     path) from one state over 10 steps at 64 envs, football's two envs
+     fed the same planner samples.  Then training:
      init_training("transport", 4096) at the PPOConfig defaults and 3
      train_step calls under the same sync check: 16 PPO-update launches and
      64 physics launches an iteration, finite loss and reward, parameters
      changed, the spawner's give-ups printed; the same for navigation (ray
      casts in the rollout) with 16-step rollouts;
   4. env-steps/s of each 100-step rollout through the kernels and with
-     both kernels forced off (the world on its plain physics, the ray cast
-     on cast_rays_plain), in turns (kernel, plain, plain, kernel), timed
-     with CUDA events; then training env-steps/s of simple_spread@4096,
+     the kernels forced off (the world on its plain physics, the ray cast
+     on cast_rays_plain, the planner on best_positions_plain), in turns
+     (kernel, plain, plain, kernel), timed with CUDA events; then
+     training env-steps/s of simple_spread@4096,
      transport@4096 and transport@16384 with the PPO kernel and with the
      autograd update, in turns, and the rollout and update time of an
      iteration;
@@ -96,14 +106,25 @@ CAST_TOL = 1e-5
 # The scenarios the physics kernel already ran before the ray cast was
 # ported, compared across commits by --ab.
 AB_SCENARIOS = ("transport", "simple_spread")
-# (scenario, agents, obs width, ray-cast launches a step)
+# (scenario, agents, obs width, ray-cast launches a step, planner launches
+# a step)
 MAIN_PATHS = [
-    ("transport", 4, 11, 0),
-    ("simple_spread", 3, 14, 0),
-    ("navigation", 4, 18, 4),
-    ("flocking", 4, 18, 4),
-    ("balance", 3, 16, 0),
+    ("transport", 4, 11, 0, 0),
+    ("simple_spread", 3, 14, 0, 0),
+    ("navigation", 4, 18, 4, 0),
+    ("flocking", 4, 18, 4, 0),
+    ("balance", 3, 16, 0, 0),
+    ("football", 5, 88, 0, 1),
 ]
+# A main path's make_env kwargs beyond the defaults: football 5v5, the
+# reference's benchmark configuration (BASELINE.md), the red team scripted.
+PATH_KWARGS = {"football": dict(n_blue_agents=5, n_red_agents=5)}
+# Phase 2's random physics inputs put every entity in [-spread, spread]^2:
+# 0.3 by default; football's 23 entities (10 walls and goal lines) at 0.3
+# press each sphere against up to ten lines at once, whose opposed contact
+# forces cancel to a residue that no fp32 sum order keeps (its pitch is
+# 3 x 1.5), so it is held at 1.0 and dense_contacts prints 0.3.
+PATH_SPREAD = {"football": 1.0}
 # The H100 SXM's published rates (NVIDIA's data sheet): device
 # memory and fp32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -114,8 +135,17 @@ FP32_FLOP_PER_S = 67e12
 PHYSICS_OPS = {"ss": 29, "bs": 131, "ls": 42, "ll": 133, "bl": 470,
                "bb": 3300, "entity": 25}
 CAST_OPS = {"ray": 3, "sphere": 37, "box": 55, "line": 28}
+# The same for csrc/football_policy.cu: per candidate and teammate, plus
+# the teammate-repulsion term per candidate, teammate and other teammate.
+PLANNER_OPS = {"candidate": 91, "pair": 11}
 # bf16 products with fp32 accumulation in the tensor cores (the same sheet).
 BF16_FLOP_PER_S = 989e12
+# Planner kernel vs plain: a row that picks the plain version's candidate
+# outputs that candidate, made by the same two operations (a sum, a clamp)
+# on both sides, so it must agree to the bit; 1e-6 leaves an ulp of room.
+# A row that picks another candidate moves by up to the pitch's width and
+# is allowed only at a near tie (torch_helpers.planner_selection_diff).
+PLANNER_ATOL = 1e-6
 # PPO-update kernel vs plain, one minibatch from identical inputs.  Both sum
 # 262,144 per-sample terms of either sign in fp32, the kernel per tile and
 # block in a fixed order, the plain version inside a library matrix product,
@@ -153,6 +183,14 @@ PPO_COMPARED = set()
 
 def log(msg):
     print(msg, flush=True)
+
+
+def make_path_env(name, num_envs, device="cuda", seed=0):
+    """make_env of a main path, with its PATH_KWARGS."""
+    import vectorizedmultiagentsimulator_tpu_torch as vmt
+
+    return vmt.make_env(name, num_envs=num_envs, device=device, seed=seed,
+                        **PATH_KWARGS.get(name, {}))
 
 
 def cuda_time_ms(fn, iters):
@@ -196,6 +234,34 @@ def kernel_vs_plain(world, inputs, label):
             f"{label}: kernel disagrees with plain beyond {ATOL} + {RTOL}|ref|"
         )
     return err
+
+
+def dense_contacts(name, spread=0.3):
+    """Printed, not held: the physics of ``name`` at 30k envs from random
+    inputs at ``spread``, the kernel against the plain version on the card,
+    and the plain version on the card against the same on the CPU (the
+    same function summed in another order)."""
+    import torch
+    from torch_helpers import random_step_inputs
+    from vectorizedmultiagentsimulator_tpu_torch.ops import physics_cuda
+
+    w_g = make_path_env(name, N_ENVS).world
+    w_c = make_path_env(name, N_ENVS, device="cpu").world
+    inputs = random_step_inputs(w_g, spread, seed=3)
+    with torch.no_grad():
+        got = physics_cuda.fused_step(w_g, *inputs)
+        ref = physics_cuda.step_plain(w_g, *inputs)
+        cpu = physics_cuda.step_plain(w_c, *[x.cpu() for x in inputs])
+    torch.cuda.synchronize()
+    cpu = [x.cuda() for x in cpu]
+    for label, a, b in (("kernel vs plain", got, ref),
+                        ("plain vs plain on the CPU", ref, cpu)):
+        worst = max(float((x - y).abs().max()) for x, y in zip(a, b))
+        over = sum(int(((x - y).abs() > ATOL + RTOL * y.abs()).sum())
+                   for x, y in zip(a, b))
+        log(f"[2] physics {name}@{N_ENVS} random at spread {spread} (not"
+            f" held): {label} max|diff| {worst:.3e}, {over} elements over"
+            f" {ATOL} + {RTOL}|ref|")
 
 
 def state_inputs(world):
@@ -267,17 +333,18 @@ def bound(moved, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def main_path(name, n_agents, obs_dim, casts_per_step):
+def main_path(name, n_agents, obs_dim, casts_per_step, plans_per_step):
     """N_STEPS steps of make_env(name) at 30k envs on the card with no host
-    sync; returns the physics and ray-cast launches counted in that run."""
+    sync; returns the physics, ray-cast and planner launches counted in
+    that run."""
     import torch
-    import vectorizedmultiagentsimulator_tpu_torch as vmt
     from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        football_policy_cuda,
         physics_cuda,
         raycast_cuda,
     )
 
-    env = vmt.make_env(name, num_envs=N_ENVS, device="cuda", seed=0)
+    env = make_path_env(name, N_ENVS)
     env.reset()
     assert env.world._use_kernel, f"{name} does not step through the kernel"
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -285,6 +352,7 @@ def main_path(name, n_agents, obs_dim, casts_per_step):
     torch.cuda.synchronize()
     physics_cuda.LAUNCHES = 0
     raycast_cuda.LAUNCHES = 0
+    football_policy_cuda.LAUNCHES = 0
     torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(N_STEPS):
@@ -296,6 +364,7 @@ def main_path(name, n_agents, obs_dim, casts_per_step):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     steps, casts = physics_cuda.LAUNCHES, raycast_cuda.LAUNCHES
+    plans = football_policy_cuda.LAUNCHES
     torch.cuda.synchronize()
     assert len(obs) == n_agents and len(rews) == n_agents
     for o, r in zip(obs, rews):
@@ -306,34 +375,49 @@ def main_path(name, n_agents, obs_dim, casts_per_step):
     s = env.world.state
     for f in ("pos", "vel", "rot", "ang_vel"):
         assert bool(torch.isfinite(getattr(s, f)).all()), f
-    if steps != N_STEPS or casts != N_STEPS * casts_per_step:
+    expected = (N_STEPS, N_STEPS * casts_per_step, N_STEPS * plans_per_step)
+    if (steps, casts, plans) != expected:
         raise AssertionError(
-            f"{name}: {steps} physics and {casts} ray-cast launches in"
-            f" {N_STEPS} steps (expected {N_STEPS} and"
-            f" {N_STEPS * casts_per_step})"
+            f"{name}: {steps} physics, {casts} ray-cast and {plans} planner"
+            f" launches in {N_STEPS} steps (expected {expected})"
         )
     log(f"[3] {name}@{N_ENVS}: {N_STEPS} steps, no host sync, obs"
         f" {n_agents}x[{N_ENVS}, {obs_dim}] finite, physics launches {steps},"
-        f" ray-cast launches {casts}")
-    return steps, casts
+        f" ray-cast launches {casts}, planner launches {plans}")
+    return steps, casts, plans
 
 
 def cuda_vs_cpu(name, n_envs=64, n_steps=10):
     """The whole step on the card (kernels) against the CPU env (plain
     path) from one injected state, at the parity tests' tolerance
-    (5e-4 growing x1.6 a step, plus 2e-3 relative)."""
+    (5e-4 growing x1.6 a step, plus 2e-3 relative).  A scripted AI's two
+    envs draw the same planner samples.  Its choices (the nearest agent to
+    the ball, the best of three candidates) are discrete, so an env whose
+    state differs by an ulp can take another branch where two options tie;
+    as in the golden tests, such an env leaves the comparison (it is
+    counted and printed), and at most 1/8 of the envs may."""
     import torch
-    import vectorizedmultiagentsimulator_tpu_torch as vmt
     from vectorizedmultiagentsimulator_tpu_torch.utils import (
         state_from_numpy,
         state_to_numpy,
     )
 
-    env_g = vmt.make_env(name, num_envs=n_envs, device="cuda", seed=0)
-    env_c = vmt.make_env(name, num_envs=n_envs, device="cpu", seed=0)
+    env_g = make_path_env(name, n_envs)
+    env_c = make_path_env(name, n_envs, device="cpu")
     state_from_numpy(env_c, state_to_numpy(env_g))
+    scripted = getattr(env_c.scenario, "red_controller", None) is not None
+    if scripted:
+        policy = env_c.scenario.red_controller
+        z = torch.randn((n_steps, n_envs, len(policy.teammates),
+                         policy.nsamples, 2),
+                        generator=torch.Generator().manual_seed(3))
+        for env in (env_g, env_c):
+            feed = iter(z.to(env.device))
+            env.scenario.red_controller.planner_normals = (
+                lambda B, T, feed=feed: next(feed))
     g = torch.Generator().manual_seed(2)
     worst = 0.0
+    diverged = torch.zeros((n_envs,), dtype=torch.bool)
     for t in range(n_steps):
         acts = [
             torch.rand((n_envs, env_c.get_agent_action_size(a)), generator=g)
@@ -345,28 +429,43 @@ def cuda_vs_cpu(name, n_envs=64, n_steps=10):
         atol = 5e-4 * 1.6**t
         for xg, xc in zip(out_g[0] + out_g[1], out_c[0] + out_c[1]):
             d = (xg.cpu() - xc).abs()
-            worst = max(worst, float(d.max()))
-            if not bool((d <= atol + 2e-3 * xc.abs()).all()):
-                raise AssertionError(f"{name}: cuda and cpu differ at step {t}")
-        assert bool((out_g[2].cpu() == out_c[2]).all()), f"{name}: dones differ"
+            bad = d > atol + 2e-3 * xc.abs()
+            diverged |= bad.reshape(n_envs, -1).any(dim=1)
+            if bool((~diverged).any()):
+                worst = max(worst, float(d[~diverged].max()))
+        diverged |= out_g[2].cpu() != out_c[2]
+        allowed = n_envs // 8 if scripted else 0
+        if int(diverged.sum()) > allowed:
+            raise AssertionError(
+                f"{name}: cuda and cpu differ at step {t} in"
+                f" {int(diverged.sum())} of {n_envs} envs")
     log(f"[3] {name}@{n_envs}: cuda (kernels) vs cpu (plain) over {n_steps}"
-        f" steps, max |diff| obs/rew = {worst:.3e}")
+        f" steps, max |diff| obs/rew = {worst:.3e}"
+        f" ({int(diverged.sum())} of {n_envs} envs left the comparison)")
 
 
 @contextlib.contextmanager
 def kernels(env, on):
-    """Run ``env`` through both kernels, or with both forced off: the world
-    on its plain physics and every ray cast on ``cast_rays_plain``."""
-    from vectorizedmultiagentsimulator_tpu_torch.ops import raycast_cuda
+    """Run ``env`` through the step's kernels, or with them forced off: the
+    world on its plain physics, every ray cast on ``cast_rays_plain`` and
+    the planner on ``best_positions_plain``."""
+    from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        football_policy_cuda,
+        raycast_cuda,
+    )
 
     fused = raycast_cuda.fused_cast_rays
+    planner = football_policy_cuda.fused_best_positions
     env.world._use_kernel = on
     if not on:
         raycast_cuda.fused_cast_rays = raycast_cuda.cast_rays_plain
+        football_policy_cuda.fused_best_positions = (
+            football_policy_cuda.best_positions_plain)
     try:
         yield
     finally:
         raycast_cuda.fused_cast_rays = fused
+        football_policy_cuda.fused_best_positions = planner
         env.world._use_kernel = True
 
 
@@ -419,7 +518,8 @@ def profile_steps(env, actions, on):
     busy = sum(e.time_range.elapsed_us() for e in device) / 1e3 / n
     named = {}
     for key, tag in (("physics_step_kernel", "physics"),
-                     ("cast_rays_kernel", "raycast")):
+                     ("cast_rays_kernel", "raycast"),
+                     ("best_positions_kernel", "planner")):
         named[tag] = sum(e.time_range.elapsed_us() for e in device
                          if key in e.name) / 1e3 / n
     return wall, busy, 1.0 - busy / wall, len(device) / n, named
@@ -586,8 +686,8 @@ def ppo_bound_ms(spec, inputs):
     return ms, by, t_fp32
 
 
-def ppo_device_ms(fn, iters):
-    """Device time of one call's PPO kernels (update and reduce) from a
+def device_ms(fn, iters, key):
+    """Device time of one call's kernels whose name holds ``key``, from a
     torch.profiler trace of ``iters`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -598,7 +698,7 @@ def ppo_device_ms(fn, iters):
         torch.cuda.synchronize()
     return sum(e.time_range.elapsed_us() for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and "ppo_" in e.name) / 1e3 / iters
+               and key in e.name) / 1e3 / iters
 
 
 def train_path(name, num_envs, rollout_steps, iters, casts_per_step):
@@ -839,15 +939,93 @@ def ppo_phase_2(errs):
         call()
         plain()
     ms = cuda_time_ms(call, 20)
-    device_ms = ppo_device_ms(call, 5)
+    dev_ms = device_ms(call, 5, "ppo_")
     plain_ms = cuda_time_ms(plain, 5)
     bound_ms, by, fp32_ms = ppo_bound_ms(transport, timed)
     log(f"[2] ppo update at transport@4096 (one minibatch of {transport.mb}"
-        f" samples): kernel {ms:.4f} ms a launch (CUDA events), {device_ms:.4f}"
+        f" samples): kernel {ms:.4f} ms a launch (CUDA events), {dev_ms:.4f}"
         f" ms device time (update and reduce kernels), plain {plain_ms:.4f}"
         f" ms, bound {bound_ms:.5f} ms ({by}; trunk products at the bf16"
         f" tensor-core rate, the rest at the fp32 rate), {fp32_ms:.5f} ms if"
         f" every product ran at the fp32 rate as this kernel's do")
+    return ms, plain_ms, bound_ms, by
+
+
+def planner_bound_ms(p, B):
+    """The least time of one planner call on the H100: each operand read
+    once and the best positions written once over the memory rate, or its
+    arithmetic (PLANNER_OPS) over the fp32 rate; returns (ms, "bytes" |
+    "operations")."""
+    T, S = p.T, p.S
+    floats = 2 * T + 2 * T + 2 * T * S + 6 + 2 * T
+    if p.has_noise:
+        floats += T * (S + 1)
+    ops = B * T * (S + 1) * (PLANNER_OPS["candidate"] + PLANNER_OPS["pair"] * T)
+    return bound(4 * B * floats, ops)
+
+
+def planner_vs_plain(p, inputs, label):
+    """The planner kernel against its plain version on ``inputs`` (CUDA
+    tensors), then its time; returns (max |kernel - plain| over all rows,
+    kernel ms, plain ms, bound ms, bound by)."""
+    import torch
+    from torch_helpers import planner_selection_diff
+    from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        football_policy_cuda as fpc,
+    )
+
+    with torch.no_grad():
+        got = fpc.fused_best_positions(p, *inputs)
+        again = fpc.fused_best_positions(p, *inputs)
+        ref = fpc.best_positions_plain(p, *inputs)
+        torch.cuda.synchronize()
+        same_err, flips, not_ties, gap = planner_selection_diff(
+            fpc, p, inputs, got)
+        err = float((got - ref).abs().max())
+        ms = cuda_time_ms(lambda: fpc.fused_best_positions(p, *inputs), 200)
+        dev_ms = device_ms(lambda: fpc.fused_best_positions(p, *inputs), 20,
+                           "best_positions_kernel")
+        plain_ms = cuda_time_ms(lambda: fpc.best_positions_plain(p, *inputs),
+                                50)
+    bound_ms, by = planner_bound_ms(p, inputs[0].shape[0])
+    log(f"[2] planner {label}: B={inputs[0].shape[0]} T={p.T} S={p.S}"
+        f" noise={p.has_noise} max|kernel-plain| {err:.3e} (rows with the"
+        f" plain version's pick {same_err:.3e}), rows with another pick"
+        f" {flips} (largest value gap {gap:.3e}, {not_ties} not near ties),"
+        f" repeat launch bit-identical: {torch.equal(got, again)}; kernel"
+        f" {ms:.5f} ms a call (CUDA events), {dev_ms:.5f} ms device, plain"
+        f" {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({by})")
+    if same_err > PLANNER_ATOL or not_ties or not torch.equal(got, again):
+        raise AssertionError(
+            f"{label}: planner kernel disagrees with plain beyond"
+            f" {PLANNER_ATOL}, or picks another candidate away from a near"
+            f" tie ({not_ties} rows), or repeats differently")
+    return err, ms, plain_ms, bound_ms, by
+
+
+def planner_phase_2(errs, real_inputs):
+    """Phase 2 for the planner kernel: random inputs at N_ENVS for 1, 3 and
+    5 teammates with and without value noise, then ``real_inputs`` (the
+    football path's after 10 steps); returns the latter's (ms, plain_ms,
+    bound_ms, by)."""
+    import torch
+    from torch_helpers import planner_fields, random_planner_inputs
+    from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        football_policy_cuda as fpc,
+    )
+
+    for T in (1, 3, 5):
+        for noise in (False, True):
+            p = fpc.PlannerParams(**planner_fields(T, has_noise=noise))
+            inputs = [
+                None if x is None else torch.as_tensor(x, device="cuda")
+                for x in random_planner_inputs(N_ENVS, T, 2, noise, seed=T)
+            ]
+            errs.append(planner_vs_plain(p, inputs, "random inputs")[0])
+    err, ms, plain_ms, bound_ms, by = planner_vs_plain(
+        real_inputs[0], real_inputs[1:],
+        f"football 5v5@{N_ENVS} after 10 steps")
+    errs.append(err)
     return ms, plain_ms, bound_ms, by
 
 
@@ -863,8 +1041,8 @@ def main():
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import numpy as np
-    import vectorizedmultiagentsimulator_tpu_torch as vmt
     from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        football_policy_cuda,
         physics_cuda,
         ppo_update_cuda,
         raycast_cuda,
@@ -885,18 +1063,20 @@ def main():
         f" device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     ppo_specs = {k: ppo_spec(v) for k, v in PPO_BUILDS.items()}
-    builds = [physics_cuda.build, raycast_cuda.build] + [
+    builds = [physics_cuda.build, raycast_cuda.build,
+              football_policy_cuda.build] + [
         (lambda sp=sp: ppo_update_cuda.build(sp)) for sp in ppo_specs.values()
     ]
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = list(pool.map(lambda build: build(), builds))
     physics_cuda._library()
     raycast_cuda._library()
+    football_policy_cuda._library()
     log(f"[1] built {len(libs)} libraries ("
         f"{', '.join(sorted({os.path.basename(p) for p in libs}))}) in"
         f" {time.perf_counter() - t0:.2f} s")
-    tags = ["physics_step", "raycast"] + [f"ppo_update {k} {PPO_BUILDS[k]}"
-                                          for k in ppo_specs]
+    tags = ["physics_step", "raycast", "football_policy"] + [
+        f"ppo_update {k} {PPO_BUILDS[k]}" for k in ppo_specs]
     for tag, lib in zip(tags, libs):
         with open(os.path.join(os.path.dirname(lib), "build.log")) as f:
             for line in f:
@@ -910,7 +1090,7 @@ def main():
             f" entries and sums")
 
     # ---- 2: kernels vs plain on the card ---- #
-    errs, cast_errs, times = [], [], {}
+    errs, cast_errs, planner_errs, times = [], [], [], {}
     for cfg in ("spheres", "clamps", "boxes_lines", "hollow_box",
                 "gravity_friction"):
         w, _ = build_world(CONFIGS[cfg], 4096, device="cuda")
@@ -921,14 +1101,30 @@ def main():
         # Each main path at its own shapes: from its reset state, from
         # random inputs, and after 10 steps (so that LIDAR rays hit), where
         # every agent's LIDAR is cast too.
-        env = vmt.make_env(name, num_envs=N_ENVS, device="cuda", seed=0)
+        env = make_path_env(name, N_ENVS)
         w = env.world
         label = f"{name}@{N_ENVS}"
         errs.append(kernel_vs_plain(w, state_inputs(w), f"{label} reset"))
-        r_inputs = random_step_inputs(w, spread=0.3, seed=3)
+        r_inputs = random_step_inputs(w, spread=PATH_SPREAD.get(name, 0.3),
+                                      seed=3)
         errs.append(kernel_vs_plain(w, r_inputs, f"{label} random"))
-        for a in random_actions(env, 10, seed=5):
-            env.step(a)
+        # The planner's operands in the last of the 10 steps.
+        planner = football_policy_cuda.fused_best_positions
+        captured = []
+
+        def capture(*args):
+            captured[:] = args
+            return planner(*args)
+
+        football_policy_cuda.fused_best_positions = capture
+        try:
+            for a in random_actions(env, 10, seed=5):
+                env.step(a)
+        finally:
+            football_policy_cuda.fused_best_positions = planner
+        if name == "football":
+            planner_real = list(captured)
+            dense_contacts(name)
         errs.append(kernel_vs_plain(w, state_inputs(w), f"{label} 10 steps"))
         s = w.state
         for agent in env.agents:
@@ -1008,15 +1204,21 @@ def main():
         pos, rot, axis, origin, gtable, 1.5, "axis-aligned rays, unrotated boxes"
     ))
     del gw, pos, rot
+    plan_ms, plan_plain_ms, plan_bound, plan_by = planner_phase_2(
+        planner_errs, planner_real)
+    del planner_real
     ppo_errs = []
     ppo_ms, ppo_plain_ms, ppo_bound, ppo_by = ppo_phase_2(ppo_errs)
 
     # ---- 3: the main paths ---- #
-    launches = {"physics_step": 0, "raycast": 0, "ppo_update": 0}
-    for name, n_agents, obs_dim, casts in MAIN_PATHS:
-        steps, cast_count = main_path(name, n_agents, obs_dim, casts)
+    launches = {"physics_step": 0, "raycast": 0, "football_policy": 0,
+                "ppo_update": 0}
+    for name, n_agents, obs_dim, casts, plans in MAIN_PATHS:
+        steps, cast_count, plan_count = main_path(name, n_agents, obs_dim,
+                                                  casts, plans)
         launches["physics_step"] += steps
         launches["raycast"] += cast_count
+        launches["football_policy"] += plan_count
     for name, *_ in MAIN_PATHS:
         cuda_vs_cpu(name)
     for path in TRAIN_PATHS:
@@ -1027,7 +1229,7 @@ def main():
 
     # ---- 4: rollout rates, kernels on vs off, in turns ---- #
     for name, *_ in MAIN_PATHS:
-        env = vmt.make_env(name, num_envs=N_ENVS, device="cuda", seed=0)
+        env = make_path_env(name, N_ENVS)
         actions = random_actions(env, N_STEPS, seed=7)
         rates = {True: [], False: []}
         for on in (True, False, False, True):
@@ -1041,7 +1243,7 @@ def main():
 
     # ---- 5: where a step's time goes ---- #
     for name, *_ in MAIN_PATHS:
-        env = vmt.make_env(name, num_envs=N_ENVS, device="cuda", seed=0)
+        env = make_path_env(name, N_ENVS)
         actions = random_actions(env, 50, seed=8)
         for on in (True, False):
             wall, busy, idle, n_kernels, named = profile_steps(env, actions, on)
@@ -1049,7 +1251,8 @@ def main():
                 f" {wall:.4f} ms/step, device busy {busy:.4f} ms/step, idle"
                 f" share {idle:.4f}, {n_kernels:.1f} device kernels/step,"
                 f" physics kernel {named['physics']:.4f} ms/step, ray-cast"
-                f" kernel {named['raycast']:.4f} ms/step")
+                f" kernel {named['raycast']:.4f} ms/step, planner kernel"
+                f" {named['planner']:.4f} ms/step")
         del env, actions
     for name, num_envs in TRAIN_CELLS:
         profile_training(name, num_envs)
@@ -1079,6 +1282,20 @@ def main():
             "plain_ms": cast_plain_ms,
             "bound_ms": cast_bound,
             "bound_by": cast_by,
+            "library_ms": None,
+        },
+        {
+            "name": "football_policy",
+            "route": "cuda",
+            "source": "vectorizedmultiagentsimulator_tpu_torch/csrc/football_policy.cu",
+            "replaces": "vectorizedmultiagentsimulator_tpu/ops/football_policy_pallas.py:196",
+            "launches": launches["football_policy"],
+            "max_abs_err": max(planner_errs),
+            "ms": plan_ms,
+            "plain_ms": plan_plain_ms,
+            "bound_ms": plan_bound,
+            "bound_by": plan_by,
+            # No single PyTorch call computes the planner's choice.
             "library_ms": None,
         },
         {

@@ -1,6 +1,6 @@
-"""The physics, ray-cast and PPO-update kernels on the card against their
-plain versions, and the masked reset and the trainer under the host-sync
-check.  These tests need an NVIDIA GPU and nvcc; elsewhere they skip.
+"""The physics, ray-cast, planner and PPO-update kernels on the card
+against their plain versions, and the masked reset and the trainer under
+the host-sync check.  These tests need an NVIDIA GPU and nvcc; elsewhere they skip.
 This file imports no JAX, so on a machine with PyTorch only it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -18,6 +18,9 @@ from physics_configs import CONFIGS
 from torch_helpers import (
     MANY_ENTITIES,
     build_world,
+    planner_fields,
+    planner_selection_diff,
+    random_planner_inputs,
     random_ppo_inputs,
     random_step_inputs,
 )
@@ -25,6 +28,7 @@ from torch_helpers import (
 import vectorizedmultiagentsimulator_tpu_torch as vmt_torch
 from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
 from vectorizedmultiagentsimulator_tpu_torch.ops import (
+    football_policy_cuda,
     physics_cuda,
     ppo_update_cuda,
     raycast_cuda,
@@ -66,6 +70,7 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU")
     physics_cuda.build()
     raycast_cuda.build()
+    football_policy_cuda.build()
 
 
 def _compare(world, inputs):
@@ -102,17 +107,25 @@ def test_kernel_matches_plain_balance(cuda):
     _compare(w, random_step_inputs(w, 0.5, seed=15))
 
 
-@pytest.mark.parametrize("scenario", ["transport", "simple_spread",
-                                      "navigation", "flocking", "balance"])
-def test_main_path_one_launch_per_step_no_sync(cuda, scenario):
+FIVE_A_SIDE = dict(n_blue_agents=5, n_red_agents=5)
+
+
+@pytest.mark.parametrize("scenario,kwargs,planners", [
+    ("transport", {}, 0), ("simple_spread", {}, 0), ("navigation", {}, 0),
+    ("flocking", {}, 0), ("balance", {}, 0), ("football", FIVE_A_SIDE, 1)])
+def test_main_path_one_launch_per_step_no_sync(cuda, scenario, kwargs,
+                                                planners):
     """One physics launch a step, one ray-cast launch per LIDAR measure
-    (one LIDAR per agent), and no host sync over 5 steps."""
-    env = vmt_torch.make_env(scenario, num_envs=B, device="cuda", seed=0)
+    (one LIDAR per agent), one planner launch per AI team and step, and no
+    host sync over 5 steps."""
+    env = vmt_torch.make_env(scenario, num_envs=B, device="cuda", seed=0,
+                             **kwargs)
     _compare(env.world, random_step_inputs(env.world, 0.3, seed=12))
     lidars = sum(len(a.sensors) for a in env.agents)
     actions = [env.get_random_actions() for _ in range(5)]
     torch.cuda.synchronize()
     steps, casts = physics_cuda.LAUNCHES, raycast_cuda.LAUNCHES
+    plans = football_policy_cuda.LAUNCHES
     torch.cuda.set_sync_debug_mode("error")
     try:
         for a in actions:
@@ -121,7 +134,36 @@ def test_main_path_one_launch_per_step_no_sync(cuda, scenario):
         torch.cuda.set_sync_debug_mode("default")
     assert physics_cuda.LAUNCHES == steps + 5
     assert raycast_cuda.LAUNCHES == casts + 5 * lidars
+    assert football_policy_cuda.LAUNCHES == plans + 5 * planners
     assert all(bool(torch.isfinite(o).all()) for o in obs)
+
+
+@pytest.mark.parametrize("T,has_noise", [(1, False), (3, False), (5, False),
+                                         (5, True)])
+def test_planner_kernel_matches_plain(cuda, T, has_noise):
+    """The planner kernel against its plain version from the same random
+    inputs: rows that pick the same candidate within 1e-6, any other pick
+    only at a near tie; a second launch gives the same bits."""
+    p = football_policy_cuda.PlannerParams(**planner_fields(
+        T, has_noise=has_noise))
+    inputs = [None if x is None else torch.as_tensor(x, device="cuda")
+              for x in random_planner_inputs(B, T, 2, has_noise, seed=T)]
+    before = football_policy_cuda.LAUNCHES
+    got = football_policy_cuda.fused_best_positions(p, *inputs)
+    again = football_policy_cuda.fused_best_positions(p, *inputs)
+    torch.cuda.synchronize()
+    assert football_policy_cuda.LAUNCHES == before + 2
+    assert torch.equal(got, again)
+    same_err, flips, not_ties, gap = planner_selection_diff(
+        football_policy_cuda, p, inputs, got)
+    assert same_err <= 1e-6 and not_ties == 0, (same_err, flips, gap)
+    with pytest.raises(ValueError, match="mixed devices"):
+        football_policy_cuda.fused_best_positions(p, inputs[0].cpu(),
+                                                  *inputs[1:])
+    strided = torch.zeros((B, T, 4), device="cuda")[..., :2]
+    strided.copy_(inputs[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        football_policy_cuda.fused_best_positions(p, strided, *inputs[1:])
 
 
 def _cast_scene(seed, axis_aligned=False):
@@ -194,7 +236,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.parametrize("scenario", [
     "transport", "simple_spread", "navigation", "flocking", "balance",
-    "dispersion", "simple_speaker_listener"])
+    "dispersion", "simple_speaker_listener", "football"])
 def test_masked_reset_no_sync(cuda, scenario):
     """``reset_at`` with a bool mask (the trainer's reset in every step)
     reads nothing from the device and leaves the other envs alone."""

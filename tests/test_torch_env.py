@@ -168,7 +168,7 @@ def test_port_never_imports_jax():
         "import vectorizedmultiagentsimulator_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "for name in ('transport', 'navigation'):\n"
+        "for name in ('transport', 'navigation', 'football'):\n"
         "    env = p.make_env(name, num_envs=2, device='cpu')\n"
         "    env.step(env.get_random_actions())\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
@@ -206,7 +206,7 @@ def test_rollout_and_reseed(num_envs=4, n_steps=3):
 
 
 SCENARIOS = ["transport", "simple_spread", "navigation", "flocking", "balance",
-             "dispersion", "simple_speaker_listener"]
+             "dispersion", "simple_speaker_listener", "football"]
 
 
 def _state_rows(env):

@@ -17,7 +17,11 @@ from torch_helpers import MANY_ENTITIES, build_world, random_step_inputs
 
 import vectorizedmultiagentsimulator_tpu as vmt
 import vectorizedmultiagentsimulator_tpu_torch as vmt_torch
-from vectorizedmultiagentsimulator_tpu_torch.ops import physics_cuda, raycast_cuda
+from vectorizedmultiagentsimulator_tpu_torch.ops import (
+    football_policy_cuda,
+    physics_cuda,
+    raycast_cuda,
+)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -165,6 +169,7 @@ def test_fused_step_gradients_match_plain():
 @pytest.mark.parametrize("module,structs", [
     (physics_cuda, ("Tables", "Dims")),
     (raycast_cuda, ("CastTable",)),
+    (football_policy_cuda, ("Params",)),
 ])
 def test_kernel_structs_match_ctypes_mirrors(module, structs, tmp_path):
     """The structs a wrapper fills for its kernel have the C layout: every

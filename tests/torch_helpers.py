@@ -119,3 +119,60 @@ def random_ppo_inputs(spec, nb_tot, seed):
     params = [(rng.randn(*s) * 0.3).astype(np.float32) for s in shapes]
     params[6] *= 0.1  # log_std
     return packed, perm, stats, params
+
+
+def planner_fields(T, S=2, has_noise=False):
+    """``PlannerParams`` fields (either package's) of football's default
+    pitch, for ``T`` teammates and ``S`` samples; with noise, candidate 0's
+    margin is that of ``ai_decision_strength = 0.9``."""
+    return dict(T=T, S=S, clamp_y=0.725, clamp_x=1.475, goal_y=0.15,
+                goal_x=0.1, wall_w2=0.75, wall_l2=1.5,
+                margin0=0.3 if has_noise else 0.0, has_noise=has_noise)
+
+
+def random_planner_inputs(B, T, S, has_noise, seed):
+    """The planner's operands as float32 numpy arrays drawn from ``seed``:
+    ``(agents_pos, curr_target, samples, ball_pos, target_net_pos,
+    own_net_pos, value_noise or None)``, positions over the whole pitch
+    and its goal mouths, so that clamps and walls act."""
+    rng = np.random.RandomState(seed)
+
+    def u(*shape, s=1.2):
+        return rng.uniform(-s, s, shape).astype(np.float32)
+
+    agents = np.stack([u(B, T, s=1.6), u(B, T, s=0.8)], -1)
+    target = np.stack([u(B, T, s=1.6), u(B, T, s=0.8)], -1)
+    samples = (rng.randn(B, T, S, 2) * 0.5).astype(np.float32)
+    ball = u(B, 2)
+    tnet = np.tile(np.float32([[1.55, 0.0]]), (B, 1))
+    onet = np.tile(np.float32([[-1.55, 0.0]]), (B, 1))
+    vn = (rng.randn(B, T, S + 1) * 0.1).astype(np.float32) if has_noise else None
+    return agents, target, samples, ball, tnet, onet, vn
+
+
+# A planner output that moves by more than this from the plain version's
+# picked another candidate; such a row must be a near tie: its candidate's
+# value within PLANNER_TIE of the best value.
+PLANNER_SAME = 1e-5
+PLANNER_TIE = 1e-6
+
+
+def planner_selection_diff(fpc, p, inputs, got):
+    """``got`` [B, T, 2] (a kernel's best positions) against the plain
+    version of ``fpc`` (``ops/football_policy_cuda``) on ``inputs``:
+    ``(max |got - plain| over rows that select the plain version's
+    candidate, rows that select another, how many of those are not near
+    ties, the largest value gap of those rows)``."""
+    with torch.no_grad():
+        px, py, values = fpc.candidate_values_plain(p, *inputs)
+        ref = fpc.best_positions_plain(p, *inputs)
+    diff = (got - ref).abs().amax(-1)  # [B, T]
+    flipped = diff > PLANNER_SAME
+    same_err = float(diff[~flipped].max()) if bool((~flipped).any()) else 0.0
+    cand = torch.stack([px, py], -1)  # [B, T, S + 1, 2]
+    pick = (got[..., None, :] - cand).abs().amax(-1).argmin(-1)
+    gap = values.amax(-1) - torch.gather(values, -1, pick[..., None])[..., 0]
+    gap = gap[flipped]
+    worst_gap = float(gap.max()) if gap.numel() else 0.0
+    return (same_err, int(flipped.sum()), int((gap > PLANNER_TIE).sum()),
+            worst_gap)

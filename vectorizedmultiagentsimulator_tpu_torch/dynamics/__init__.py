@@ -1,8 +1,9 @@
 """Action-to-force dynamics models.
 
 PyTorch counterpart of ``vectorizedmultiagentsimulator_tpu/dynamics``
-(reference ``vmas/simulator/dynamics/``).  This slice ports the abstract
-base and ``Holonomic``; the other models are ROADMAP Queue 1 item 6.
+(reference ``vmas/simulator/dynamics/``).  Ported so far: the abstract
+base, ``Holonomic`` and ``HolonomicWithRotation``; the other models are
+ROADMAP Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -60,3 +61,15 @@ class Holonomic(Dynamics):
 
     def process_action(self):
         self.agent.state.force = self.agent.action.u[:, :2]
+
+
+class HolonomicWithRotation(Dynamics):
+    """force = u[:2], torque = u[2] (dynamics/holonomic_with_rot.py)."""
+
+    @property
+    def needed_action_size(self) -> int:
+        return 3
+
+    def process_action(self):
+        self.agent.state.force = self.agent.action.u[:, :2]
+        self.agent.state.torque = self.agent.action.u[:, 2:3]

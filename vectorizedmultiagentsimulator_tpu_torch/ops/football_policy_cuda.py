@@ -1,0 +1,347 @@
+"""Football's scripted-AI planner as a hand-written CUDA kernel
+(``csrc/football_policy.cu``).
+
+Replaces the JAX package's Pallas kernel
+(``ops/football_policy_pallas.py::_make_kernel``).  For every env and AI
+teammate the planner builds ``S + 1`` candidate targets (the current target,
+then the samples: even samples centred on the ball, odd ones on the agent),
+clamps them to the pitch, scores them with the 5-term value of
+``AgentPolicy.get_pos_value`` and returns the first-max candidate.  The
+samples (and the optional value noise) are drawn outside, so the kernel is
+a pure function of its operands.  This module holds:
+
+* ``PlannerParams`` and ``planner_params(policy)``: the static planner
+  configuration, as in the JAX package;
+* ``candidate_values_plain`` and ``best_positions_plain``: the plain
+  PyTorch version, the counterpart of the JAX package's
+  ``best_positions_jnp`` (the same formulation: the stacked
+  wall-displacement form, the first-max fold with strict ``>``);
+* ``fused_best_positions``: the wrapper.  On CUDA tensors it launches the
+  kernel or raises; on CPU tensors it runs ``best_positions_plain``.  It is
+  a ``torch.autograd.Function`` whose backward re-runs
+  ``best_positions_plain`` under autograd, as the JAX package's
+  ``custom_vjp`` replays its jnp mirror;
+* ``LAUNCHES``: the number of kernel launches, counted where the kernel is
+  launched and nowhere else.
+
+Shapes: ``agents_pos [B, T, 2]``, ``curr_target [B, T, 2]``, ``samples [B,
+T, S, 2]`` (already scaled), ``ball_pos``, ``target_net_pos`` and
+``own_net_pos [B, 2]``, ``value_noise [B, T, S + 1]`` or None; the result
+is ``[B, T, 2]``, all float32.  The kernel is built at first use by
+:mod:`.cuda_build`.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import NamedTuple, Optional
+
+import torch
+
+from vectorizedmultiagentsimulator_tpu_torch.ops import cuda_build
+
+LAUNCHES = 0
+
+SOURCE = os.path.join(cuda_build.CSRC, "football_policy.cu")
+
+Tensor = torch.Tensor
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+class PlannerParams(NamedTuple):
+    """Static planner configuration (the JAX package's, field for field)."""
+
+    T: int  # teammates
+    S: int  # nsamples
+    clamp_y: float  # pitch_width/2 - agent_size
+    clamp_x: float  # pitch_length/2 - agent_size
+    goal_y: float  # goal_size/2 - agent_size
+    goal_x: float  # goal_depth
+    wall_w2: float  # pitch_width/2
+    wall_l2: float  # pitch_length/2
+    margin0: float  # replan_margin + 3*(1 - decision_strength)
+    has_noise: bool  # decision_strength != 1 -> value-noise operand
+
+
+def planner_params(policy) -> PlannerParams:
+    """The static planner config of a live ``AgentPolicy``."""
+    world = policy.world
+    ds = policy.decision_strength
+    return PlannerParams(
+        T=len(policy.teammates),
+        S=int(policy.nsamples),
+        clamp_y=float(world.pitch_width / 2 - world.agent_size),
+        clamp_x=float(world.pitch_length / 2 - world.agent_size),
+        goal_y=float(world.goal_size / 2 - world.agent_size),
+        goal_x=float(world.goal_depth),
+        wall_w2=float(world.pitch_width / 2),
+        wall_l2=float(world.pitch_length / 2),
+        margin0=float(policy.replan_margin + 3 * (1 - ds)),
+        has_noise=bool(ds != 1),
+    )
+
+
+class _Params(ctypes.Structure):
+    """``Params`` of csrc/football_policy.cu, field for field.  The clamp
+    bounds are rounded to fp32 here exactly as ``torch.clamp`` rounds the
+    plain version's Python bounds."""
+
+    _fields_ = [("T", _I), ("S", _I), ("has_noise", _I)] + [
+        (n, _F) for n in ("clamp_y", "clamp_x", "goal_y", "goal_x_hi",
+                          "wall_w2", "wall_l2", "margin0")
+    ]
+
+
+_structs = {}
+
+
+def _struct(p: PlannerParams) -> _Params:
+    """The kernel's ``Params`` for ``p``, filled once."""
+    s = _structs.get(p)
+    if s is None:
+        s = _structs[p] = _Params(
+            p.T, p.S, int(p.has_noise), p.clamp_y, p.clamp_x, p.goal_y,
+            p.clamp_x + p.goal_x, p.wall_w2, p.wall_l2, p.margin0,
+        )
+    return s
+
+
+_NOT_SELF = {}
+
+
+def _not_self(T: int, device) -> Tensor:
+    """``[T, 1, T]``: 0 where the teammate is the agent itself, else 1;
+    made once per device."""
+    key = (T, str(device))
+    m = _NOT_SELF.get(key)
+    if m is None:
+        m = _NOT_SELF[key] = (
+            1.0 - torch.eye(T, dtype=torch.float32, device=device))[:, None]
+    return m
+
+
+def _norm2(x: Tensor, y: Tensor) -> Tensor:
+    """|(x, y)| as two products, a sum and a square root, each its own
+    rounding (the kernel's order)."""
+    return torch.sqrt(x * x + y * y)
+
+
+def candidate_values_plain(p: PlannerParams, agents_pos, curr_target, samples,
+                           ball_pos, target_net_pos, own_net_pos,
+                           value_noise=None):
+    """The clamped candidates and their values: ``(px, py, values)``, each
+    ``[B, T, S + 1]``; candidate 0 is ``curr_target``, candidate ``j + 1``
+    is sample ``j`` around the ball (even ``j``) or the agent (odd ``j``).
+    ``values`` include the value noise and candidate 0's margin."""
+    T, S = p.T, p.S
+    ax, ay = agents_pos[..., 0], agents_pos[..., 1]  # [B, T]
+    bx, by = ball_pos[:, None, 0:1], ball_pos[:, None, 1:2]  # [B, 1, 1]
+    centre_x = torch.stack(
+        [ball_pos[:, None, 0].expand_as(ax) if j % 2 == 0 else ax
+         for j in range(S)], dim=-1)  # [B, T, S]
+    centre_y = torch.stack(
+        [ball_pos[:, None, 1].expand_as(ay) if j % 2 == 0 else ay
+         for j in range(S)], dim=-1)
+    rx = torch.cat([curr_target[..., 0:1], samples[..., 0] + centre_x], -1)
+    ry = torch.cat([curr_target[..., 1:2], samples[..., 1] + centre_y], -1)
+
+    # clamp_pos (football.py AgentPolicy.clamp_pos)
+    py = torch.clamp(ry, -p.clamp_y, p.clamp_y)
+    inside_goal_y = torch.abs(py) < p.goal_y
+    px = torch.where(
+        inside_goal_y,
+        torch.clamp(rx, -p.clamp_x - p.goal_x, p.clamp_x + p.goal_x),
+        torch.clamp(rx, -p.clamp_x, p.clamp_x),
+    )
+
+    # get_pos_value: ball proximity and direction
+    bvx, bvy = bx - px, by - py
+    ball_norm = _norm2(bvx, bvy)
+    valid = ball_norm > 0
+    bden = torch.clamp_min(ball_norm, 1e-12)
+    zero = torch.zeros_like(px)
+    bhx = torch.where(valid, bvx / bden, zero)
+    bhy = torch.where(valid, bvy / bden, zero)
+    # |pos - ball| is |ball - pos|: negation is exact.
+    d2 = ball_norm * ball_norm
+    ball_dist_value = torch.exp(-2 * (d2 * d2))
+
+    # shooting-side and defend dot products
+    nvx = target_net_pos[:, None, 0:1] - px
+    nvy = target_net_pos[:, None, 1:2] - py
+    net_norm = torch.clamp_min(_norm2(nvx, nvy), 1e-12)
+    side_dot = bhx * (nvx / net_norm) + bhy * (nvy / net_norm)
+    side_value = torch.clamp_max(side_dot + 1.25, 1.0)
+    ovx = (own_net_pos[:, None, 0:1] - px) / net_norm
+    ovy = (own_net_pos[:, None, 1:2] - py) / net_norm
+    defend_value = torch.clamp_min(bhx * -ovx + bhy * -ovy, 0.0)
+
+    # teammate repulsion: 1 - |(exp(-5 d_j))_j| with the agent's own term
+    # zeroed, its squares summed over the teammates in order
+    if T > 1:
+        dx = ax[:, None, None, :] - px[..., None]  # [B, T, S + 1, T]
+        dy = ay[:, None, None, :] - py[..., None]
+        e = torch.exp(-5 * _norm2(dx, dy)) * _not_self(T, px.device)
+        sq = e * e
+        acc = sq[..., 0]
+        for j in range(1, T):
+            acc = acc + sq[..., j]
+        other_agent_value = -torch.sqrt(acc) + 1
+
+    # get_wall_separations in its stacked form: the vertical displacement
+    # (0, vmag * vsign), the horizontal one (hmag * hsign, 0)
+    top, bottom = -py + p.wall_w2, py + p.wall_w2
+    left, right = px + p.wall_l2, -px + p.wall_l2
+    vmag = torch.minimum(top, bottom)
+    vsign = torch.where(bottom < top, -1.0, 1.0)
+    hmag = torch.minimum(left, right)
+    hsign = torch.where(left < right, -1.0, 1.0)
+    wall_v = _norm2(zero, vmag * vsign)
+    wall_h = _norm2(hmag * hsign, zero)
+    wall_value = -_norm2(torch.exp(-8 * wall_v), torch.exp(-8 * wall_h)) + 1
+
+    value = wall_value
+    if T > 1:
+        value = value + other_agent_value
+    value = (value + ball_dist_value + side_value + defend_value) / 5
+    if p.has_noise:
+        value = value + value_noise
+    value = torch.cat([value[..., :1] + p.margin0, value[..., 1:]], -1)
+    return px, py, value
+
+
+def best_positions_plain(p: PlannerParams, agents_pos, curr_target, samples,
+                         ball_pos, target_net_pos, own_net_pos,
+                         value_noise=None) -> Tensor:
+    """The plain PyTorch version of the kernel: the first-max candidate of
+    ``candidate_values_plain`` (strict ``>``: ties keep the earliest),
+    ``[B, T, 2]``."""
+    px, py, values = candidate_values_plain(
+        p, agents_pos, curr_target, samples, ball_pos, target_net_pos,
+        own_net_pos, value_noise)
+    best_x, best_y, best_val = px[..., 0], py[..., 0], values[..., 0]
+    for k in range(1, p.S + 1):
+        better = values[..., k] > best_val
+        best_x = torch.where(better, px[..., k], best_x)
+        best_y = torch.where(better, py[..., k], best_y)
+        best_val = torch.maximum(best_val, values[..., k])
+    return torch.stack([best_x, best_y], dim=-1)
+
+
+def build() -> str:
+    """Compile the kernel library if needed; returns its path."""
+    return cuda_build.build(SOURCE)
+
+
+_fn = None
+
+
+def _library():
+    """``vmt_football_best_positions``, built and bound at the first
+    launch."""
+    global _fn
+    if _fn is None:
+        _fn = cuda_build.entry_point(
+            SOURCE, "vmt_football_best_positions", [_P] * 8 + [_P, _I, _P]
+        )
+    return _fn
+
+
+def launch(p: PlannerParams, agents_pos, curr_target, samples, ball_pos,
+           target_net_pos, own_net_pos, value_noise=None) -> Tensor:
+    """Launch the kernel on PyTorch's current stream; returns the best
+    positions ``[B, T, 2]``, allocated here."""
+    global LAUNCHES
+    dev = agents_pos.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel runs on CUDA tensors, got {dev}")
+    if p.T < 1 or p.S < 0:
+        raise ValueError(f"T={p.T}, S={p.S}: the kernel takes T >= 1, S >= 0")
+    if (value_noise is None) == p.has_noise:
+        raise ValueError("value_noise must be given iff p.has_noise")
+    B = agents_pos.shape[0]
+    T, S = p.T, p.S
+    checks = [("agents_pos", agents_pos, (B, T, 2)),
+              ("curr_target", curr_target, (B, T, 2)),
+              ("samples", samples, (B, T, S, 2)),
+              ("ball_pos", ball_pos, (B, 2)),
+              ("target_net_pos", target_net_pos, (B, 2)),
+              ("own_net_pos", own_net_pos, (B, 2))]
+    if p.has_noise:
+        checks.append(("value_noise", value_noise, (B, T, S + 1)))
+    for name, x, shape in checks:
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, expected {dev}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} has dtype {x.dtype}, expected float32")
+        if tuple(x.shape) != shape:
+            raise ValueError(
+                f"{name} has shape {tuple(x.shape)}, expected {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    out = torch.empty((B, T, 2), dtype=torch.float32, device=dev)
+    err = _library()(
+        agents_pos.data_ptr(), curr_target.data_ptr(), samples.data_ptr(),
+        ball_pos.data_ptr(), target_net_pos.data_ptr(),
+        own_net_pos.data_ptr(),
+        value_noise.data_ptr() if p.has_noise else None, out.data_ptr(),
+        ctypes.addressof(_struct(p)), B,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"planner kernel launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return out
+
+
+class _FusedBestPositions(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p, agents_pos, curr_target, samples, ball_pos,
+                target_net_pos, own_net_pos, value_noise):
+        inputs = (agents_pos, curr_target, samples, ball_pos, target_net_pos,
+                  own_net_pos) + ((value_noise,) if p.has_noise else ())
+        ctx.save_for_backward(*inputs)
+        ctx.p = p
+        devices = {x.device.type for x in inputs}
+        if devices == {"cuda"}:
+            return launch(p, *inputs)
+        if devices == {"cpu"}:
+            return best_positions_plain(p, *inputs)
+        raise ValueError(f"inputs on mixed devices: {devices}")
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [
+            x.detach().requires_grad_(need)
+            for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad[1:])
+        ]
+        wrt = [x for x in inputs if x.requires_grad]
+        with torch.enable_grad():
+            out = best_positions_plain(ctx.p, *inputs)
+        got = iter(
+            torch.autograd.grad(out, wrt, grad, allow_unused=True)
+            if out.requires_grad else [None] * len(wrt)
+        )
+        grads = [next(got) if x.requires_grad else None for x in inputs]
+        return (None, *grads) + (None,) * (7 - len(grads))
+
+
+def fused_best_positions(p: PlannerParams, agents_pos: Tensor,
+                         curr_target: Tensor, samples: Tensor,
+                         ball_pos: Tensor, target_net_pos: Tensor,
+                         own_net_pos: Tensor,
+                         value_noise: Optional[Tensor] = None) -> Tensor:
+    """The planner's best positions ``[B, T, 2]``: the kernel on CUDA
+    tensors, ``best_positions_plain`` on CPU tensors; differentiable
+    through ``best_positions_plain``.  ``value_noise`` is given iff
+    ``p.has_noise``."""
+    if (value_noise is None) == p.has_noise:
+        raise ValueError(
+            "fused_best_positions: value_noise must be given iff p.has_noise"
+            f" (has_noise={p.has_noise})")
+    return _FusedBestPositions.apply(p, agents_pos, curr_target, samples,
+                                     ball_pos, target_net_pos, own_net_pos,
+                                     value_noise)

@@ -13,6 +13,7 @@ _REGISTRY = {
     "balance": "vectorizedmultiagentsimulator_tpu_torch.scenarios.balance",
     "dispersion": "vectorizedmultiagentsimulator_tpu_torch.scenarios.dispersion",
     "flocking": "vectorizedmultiagentsimulator_tpu_torch.scenarios.flocking",
+    "football": "vectorizedmultiagentsimulator_tpu_torch.scenarios.football",
     "navigation": "vectorizedmultiagentsimulator_tpu_torch.scenarios.navigation",
     "transport": "vectorizedmultiagentsimulator_tpu_torch.scenarios.transport",
     "simple_speaker_listener": (
