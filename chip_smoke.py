@@ -5,11 +5,11 @@
 
 Phases, one line each:
   1. the card (nvidia-smi name and power limit), the torch/CUDA versions,
-     and the build of the four kernels, csrc/physics_step.cu,
-     csrc/raycast.cu, csrc/football_policy.cu and csrc/ppo_update.cu (the
-     last once per network shape of PPO_BUILDS; one nvcc each, all started
-     together), with ptxas' registers and spills and the PPO kernel's
-     shared memory;
+     and the build of the kernels, csrc/physics_step.cu, csrc/raycast.cu,
+     csrc/football_policy.cu, csrc/road_geometry.cu (three kernels) and
+     csrc/ppo_update.cu (the last once per network shape of PPO_BUILDS; one
+     nvcc each, all started together), with ptxas' registers and spills
+     and the PPO kernel's shared memory;
   2. each kernel against its plain PyTorch version from identical inputs
      on the card.  Physics, one step: the `spheres`, `clamps`,
      `boxes_lines`, `hollow_box` and `gravity_friction` worlds of
@@ -35,18 +35,34 @@ Phases, one line each:
      for each, max |kernel - plain| over the rows that pick the plain
      version's candidate, the rows that pick another (each must be a near
      tie: its value within 1e-6 of the best), the time of a launch (CUDA
-     events and device time), the plain version's time and the bound;
-  3. the main paths: make_env(name, num_envs=30_000, device="cuda") for
+     events and device time), the plain version's time and the bound.
+     Road geometry (the agent-geometry, pair and neighbour kernels): road_
+     traffic@10k from its reset poses (agents on path vertices: the closest
+     index and every flag must equal the plain version's), from jittered
+     poses, on vertices just before the paths' ends (the short-term path
+     wraps around a loop; exact too) and after 10 steps, and a map '3'
+     world (10 agents) from the same poses, across its entry and exit
+     segments and after 10 steps
+     (torch_helpers.geometry_diff: continuous outputs within 1e-5 +
+     1e-5|ref|, a moved index or flipped flag only at a near tie or
+     touch); the neighbour kernel on each of those and on random inputs
+     (nd bit-equal); two launches bit-identical; then each kernel's time
+     (CUDA events and device time), its plain version's and its bound;
+  3. the main paths: make_env(name, num_envs, device="cuda") for
      transport, simple_spread, navigation, flocking, balance and football
-     (5v5, the red team's scripted AI), reset, 100 env.step calls under
+     (5v5, the red team's scripted AI) at 30k envs and road_traffic (20
+     vehicles, the CPM-Lab map) at 10k, reset, 100 env.step calls under
      torch.cuda.set_sync_debug_mode("error") (any host sync fails the run);
      outputs finite and of the JAX package's shapes; exactly one physics
      launch per step, one ray-cast launch per LIDAR measure (4 a step in
-     navigation and flocking, none elsewhere) and one planner launch per
-     AI team and step (football), each count set to 0 just before the run
-     and read just after.  Then each CUDA env against the CPU env (plain
-     path) from one state over 10 steps at 64 envs, football's two envs
-     fed the same planner samples.  Then training:
+     navigation and flocking, none elsewhere), one planner launch per AI
+     team and step (football) and one launch of each road kernel a step
+     (road_traffic), each count set to 0 just before the run and read just
+     after; road_traffic with map '3' (10 agents), whose done() re-places
+     agents every step, likewise (two agent-geometry launches a step).
+     Then each CUDA env against the CPU env (plain path) from one state
+     over 10 steps at 64 envs, football's two envs fed the same planner
+     samples, road_traffic's without observation noise.  Then training:
      init_training("transport", 4096) at the PPOConfig defaults and 3
      train_step calls under the same sync check: 16 PPO-update launches and
      64 physics launches an iteration, finite loss and reward, parameters
@@ -54,13 +70,14 @@ Phases, one line each:
      casts in the rollout) with 16-step rollouts;
   4. env-steps/s of each 100-step rollout through the kernels and with
      the kernels forced off (the world on its plain physics, the ray cast
-     on cast_rays_plain, the planner on best_positions_plain), in turns
+     on cast_rays_plain, the planner on best_positions_plain, the road
+     geometry on geometry_plain and neighbor_obs_plain), in turns
      (kernel, plain, plain, kernel), timed with CUDA events; then
      training env-steps/s of simple_spread@4096,
      transport@4096 and transport@16384 with the PPO kernel and with the
      autograd update, in turns, and the rollout and update time of an
      iteration;
-  5. a torch.profiler trace of 50 steady steps of each scenario at 30k,
+  5. a torch.profiler trace of 50 steady steps of each main path,
      kernels on and off: wall ms a step (CUDA events, without the
      profiler), device busy ms a step, idle share, device kernels a step,
      and each kernel's device ms a step; then for each training cell the
@@ -83,6 +100,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -106,16 +124,24 @@ CAST_TOL = 1e-5
 # The scenarios the physics kernel already ran before the ray cast was
 # ported, compared across commits by --ab.
 AB_SCENARIOS = ("transport", "simple_spread")
-# (scenario, agents, obs width, ray-cast launches a step, planner launches
-# a step)
+# (scenario, envs, agents, obs width, ray-cast launches a step, planner
+# launches a step, road-kernel launches a step: agent geometry, pair,
+# neighbour).  road_traffic runs at 10k envs: the plain version's [B, A, 5,
+# 184] fp32 intermediates, several alive at once, are 0.74 GB each there.
 MAIN_PATHS = [
-    ("transport", 4, 11, 0, 0),
-    ("simple_spread", 3, 14, 0, 0),
-    ("navigation", 4, 18, 4, 0),
-    ("flocking", 4, 18, 4, 0),
-    ("balance", 3, 16, 0, 0),
-    ("football", 5, 88, 0, 1),
+    ("transport", N_ENVS, 4, 11, 0, 0, (0, 0, 0)),
+    ("simple_spread", N_ENVS, 3, 14, 0, 0, (0, 0, 0)),
+    ("navigation", N_ENVS, 4, 18, 4, 0, (0, 0, 0)),
+    ("flocking", N_ENVS, 4, 18, 4, 0, (0, 0, 0)),
+    ("balance", N_ENVS, 3, 16, 0, 0, (0, 0, 0)),
+    ("football", N_ENVS, 5, 88, 0, 1, (0, 0, 0)),
+    ("road_traffic", 10_000, 20, 32, 0, 0, (1, 1, 1)),
 ]
+PATH_ENVS = {path[0]: path[1] for path in MAIN_PATHS}
+# road_traffic on map '3' (the intersection, 10 agents): its done()
+# re-places the agents that leave through an entry or exit segment every
+# step, one more agent-geometry launch a step.
+ROAD_MAP3 = dict(map_type="3", n_agents=10)
 # A main path's make_env kwargs beyond the defaults: football 5v5, the
 # reference's benchmark configuration (BASELINE.md), the red team scripted.
 PATH_KWARGS = {"football": dict(n_blue_agents=5, n_red_agents=5)}
@@ -125,6 +151,14 @@ PATH_KWARGS = {"football": dict(n_blue_agents=5, n_red_agents=5)}
 # forces cancel to a residue that no fp32 sum order keeps (its pitch is
 # 3 x 1.5), so it is held at 1.0 and dense_contacts prints 0.3.
 PATH_SPREAD = {"football": 1.0}
+# cuda_vs_cpu's extra kwargs: the two envs' generators differ, so
+# road_traffic's observation noise is off there.
+CPU_COMPARE_KWARGS = {"road_traffic": dict(is_add_noise=False)}
+# Paths whose step ends on discrete crossing flags (a collision ends the
+# episode): an ulp of the card's cos/sin against the CPU's can flip a
+# touching crossing, so, as for a scripted AI's near ties, an env may leave
+# cuda_vs_cpu's comparison (counted and printed; at most 1/8 of them).
+DISCRETE_FLAGS = ("road_traffic",)
 # The H100 SXM's published rates (NVIDIA's data sheet): device
 # memory and fp32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -138,6 +172,10 @@ CAST_OPS = {"ray": 3, "sphere": 37, "box": 55, "line": 28}
 # The same for csrc/football_policy.cu: per candidate and teammate, plus
 # the teammate-repulsion term per candidate, teammate and other teammate.
 PLANNER_OPS = {"candidate": 91, "pair": 11}
+# The same for csrc/road_geometry.cu: one segment distance with its running
+# minimum, one strict crossing test, one rectangle (cos, sin, 5 corners),
+# one short-term point, and a neighbour round besides its A compares.
+ROAD_OPS = {"seg": 26, "cross": 29, "rect": 42, "short": 8, "neighbor": 92}
 # bf16 products with fp32 accumulation in the tensor cores (the same sheet).
 BF16_FLOP_PER_S = 989e12
 # Planner kernel vs plain: a row that picks the plain version's candidate
@@ -185,12 +223,32 @@ def log(msg):
     print(msg, flush=True)
 
 
-def make_path_env(name, num_envs, device="cuda", seed=0):
-    """make_env of a main path, with its PATH_KWARGS."""
+def make_path_env(name, num_envs=None, device="cuda", seed=0, **kwargs):
+    """make_env of a main path at its env count (or ``num_envs``), with its
+    PATH_KWARGS and ``kwargs``."""
     import vectorizedmultiagentsimulator_tpu_torch as vmt
 
-    return vmt.make_env(name, num_envs=num_envs, device=device, seed=seed,
-                        **PATH_KWARGS.get(name, {}))
+    return vmt.make_env(name, num_envs=num_envs or PATH_ENVS[name],
+                        device=device, seed=seed,
+                        **PATH_KWARGS.get(name, {}), **kwargs)
+
+
+def kernel_name(line):
+    """The kernel's name in a ptxas "Compiling entry function" line, read
+    from its mangled name's length-prefixed identifiers."""
+    mangled = line.split("'")[1]
+    i = 0
+    while i < len(mangled):
+        digits = re.match(r"\d+", mangled[i:])
+        if digits is None:
+            i += 1
+            continue
+        start = i + len(digits.group())
+        name = mangled[start:start + int(digits.group())]
+        if name.endswith("kernel"):
+            return name
+        i = start + len(name)
+    return mangled
 
 
 def cuda_time_ms(fn, iters):
@@ -333,31 +391,37 @@ def bound(moved, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def main_path(name, n_agents, obs_dim, casts_per_step, plans_per_step):
-    """N_STEPS steps of make_env(name) at 30k envs on the card with no host
-    sync; returns the physics, ray-cast and planner launches counted in
-    that run."""
+def main_path(name, envs, agents, obs_dim, casts_per_step, plans_per_step,
+              road_per_step, label=None, **kwargs):
+    """N_STEPS steps of make_env(name, envs, **kwargs) on the card with no
+    host sync; returns the physics, ray-cast and planner launches and the
+    road kernels' launches counted in that run."""
     import torch
     from vectorizedmultiagentsimulator_tpu_torch.ops import (
         football_policy_cuda,
         physics_cuda,
         raycast_cuda,
+        road_geometry_cuda,
     )
 
-    env = make_path_env(name, N_ENVS)
+    label = label or f"{name}@{envs}"
+    env = make_path_env(name, envs, **kwargs)
     env.reset()
     assert env.world._use_kernel, f"{name} does not step through the kernel"
     g = torch.Generator(device="cuda").manual_seed(1)
     sizes = [env.get_agent_action_size(a) for a in env.agents]
+    give_ups_before = env.world.spawn_give_ups.clone()
     torch.cuda.synchronize()
     physics_cuda.LAUNCHES = 0
     raycast_cuda.LAUNCHES = 0
     football_policy_cuda.LAUNCHES = 0
+    road_geometry_cuda.LAUNCHES.update(
+        dict.fromkeys(road_geometry_cuda.KERNELS, 0))
     torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(N_STEPS):
             actions = [
-                torch.rand((N_ENVS, s), generator=g, device="cuda") * 2 - 1
+                torch.rand((envs, s), generator=g, device="cuda") * 2 - 1
                 for s in sizes
             ]
             obs, rews, dones, _ = env.step(actions)
@@ -365,26 +429,33 @@ def main_path(name, n_agents, obs_dim, casts_per_step, plans_per_step):
         torch.cuda.set_sync_debug_mode("default")
     steps, casts = physics_cuda.LAUNCHES, raycast_cuda.LAUNCHES
     plans = football_policy_cuda.LAUNCHES
+    road = tuple(road_geometry_cuda.LAUNCHES[k]
+                 for k in road_geometry_cuda.KERNELS)
     torch.cuda.synchronize()
-    assert len(obs) == n_agents and len(rews) == n_agents
+    assert len(obs) == agents and len(rews) == agents
     for o, r in zip(obs, rews):
-        assert tuple(o.shape) == (N_ENVS, obs_dim), o.shape
-        assert tuple(r.shape) == (N_ENVS,), r.shape
+        assert tuple(o.shape) == (envs, obs_dim), o.shape
+        assert tuple(r.shape) == (envs,), r.shape
         assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(r).all())
-    assert tuple(dones.shape) == (N_ENVS,) and dones.dtype == torch.bool
+    assert tuple(dones.shape) == (envs,) and dones.dtype == torch.bool
     s = env.world.state
     for f in ("pos", "vel", "rot", "ang_vel"):
         assert bool(torch.isfinite(getattr(s, f)).all()), f
-    expected = (N_STEPS, N_STEPS * casts_per_step, N_STEPS * plans_per_step)
-    if (steps, casts, plans) != expected:
+    expected = (N_STEPS, N_STEPS * casts_per_step, N_STEPS * plans_per_step,
+                tuple(N_STEPS * r for r in road_per_step))
+    if (steps, casts, plans, road) != expected:
         raise AssertionError(
-            f"{name}: {steps} physics, {casts} ray-cast and {plans} planner"
-            f" launches in {N_STEPS} steps (expected {expected})"
+            f"{label}: {steps} physics, {casts} ray-cast, {plans} planner and"
+            f" {road} road-kernel launches in {N_STEPS} steps (expected"
+            f" {expected})"
         )
-    log(f"[3] {name}@{N_ENVS}: {N_STEPS} steps, no host sync, obs"
-        f" {n_agents}x[{N_ENVS}, {obs_dim}] finite, physics launches {steps},"
-        f" ray-cast launches {casts}, planner launches {plans}")
-    return steps, casts, plans
+    log(f"[3] {label}: {N_STEPS} steps, no host sync, obs"
+        f" {agents}x[{envs}, {obs_dim}] finite, physics launches {steps},"
+        f" ray-cast launches {casts}, planner launches {plans}, road"
+        f" launches (agent geometry, pair, neighbour) {road}; dones in the"
+        f" last step {int(dones.sum())}, placement give-ups"
+        f" {int(env.world.spawn_give_ups - give_ups_before)}")
+    return steps, casts, plans, road
 
 
 def cuda_vs_cpu(name, n_envs=64, n_steps=10):
@@ -402,8 +473,9 @@ def cuda_vs_cpu(name, n_envs=64, n_steps=10):
         state_to_numpy,
     )
 
-    env_g = make_path_env(name, n_envs)
-    env_c = make_path_env(name, n_envs, device="cpu")
+    kwargs = CPU_COMPARE_KWARGS.get(name, {})
+    env_g = make_path_env(name, n_envs, **kwargs)
+    env_c = make_path_env(name, n_envs, device="cpu", **kwargs)
     state_from_numpy(env_c, state_to_numpy(env_g))
     scripted = getattr(env_c.scenario, "red_controller", None) is not None
     if scripted:
@@ -434,7 +506,7 @@ def cuda_vs_cpu(name, n_envs=64, n_steps=10):
             if bool((~diverged).any()):
                 worst = max(worst, float(d[~diverged].max()))
         diverged |= out_g[2].cpu() != out_c[2]
-        allowed = n_envs // 8 if scripted else 0
+        allowed = n_envs // 8 if scripted or name in DISCRETE_FLAGS else 0
         if int(diverged.sum()) > allowed:
             raise AssertionError(
                 f"{name}: cuda and cpu differ at step {t} in"
@@ -447,25 +519,35 @@ def cuda_vs_cpu(name, n_envs=64, n_steps=10):
 @contextlib.contextmanager
 def kernels(env, on):
     """Run ``env`` through the step's kernels, or with them forced off: the
-    world on its plain physics, every ray cast on ``cast_rays_plain`` and
-    the planner on ``best_positions_plain``."""
+    world on its plain physics, every ray cast on ``cast_rays_plain``, the
+    planner on ``best_positions_plain`` and the road geometry on
+    ``geometry_plain`` and ``neighbor_obs_plain``."""
     from vectorizedmultiagentsimulator_tpu_torch.ops import (
         football_policy_cuda,
         raycast_cuda,
+        road_geometry,
+        road_geometry_cuda,
     )
 
     fused = raycast_cuda.fused_cast_rays
     planner = football_policy_cuda.fused_best_positions
+    geometry = road_geometry_cuda.fused_geometry
+    neighbors = road_geometry_cuda.fused_neighbor_obs
     env.world._use_kernel = on
     if not on:
         raycast_cuda.fused_cast_rays = raycast_cuda.cast_rays_plain
         football_policy_cuda.fused_best_positions = (
             football_policy_cuda.best_positions_plain)
+        road_geometry_cuda.fused_geometry = road_geometry.geometry_plain
+        road_geometry_cuda.fused_neighbor_obs = (
+            road_geometry.neighbor_obs_plain)
     try:
         yield
     finally:
         raycast_cuda.fused_cast_rays = fused
         football_policy_cuda.fused_best_positions = planner
+        road_geometry_cuda.fused_geometry = geometry
+        road_geometry_cuda.fused_neighbor_obs = neighbors
         env.world._use_kernel = True
 
 
@@ -474,7 +556,7 @@ def random_actions(env, n, seed):
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [
-        [torch.rand((N_ENVS, env.get_agent_action_size(a)), generator=g,
+        [torch.rand((env.num_envs, env.get_agent_action_size(a)), generator=g,
                     device="cuda") * 2 - 1 for a in env.agents]
         for _ in range(n)
     ]
@@ -488,7 +570,7 @@ def timed_rollout(env, actions):
         env.step(a)
     torch.cuda.synchronize()
     ms = cuda_time_ms(lambda it=iter(actions): env.step(next(it)), len(actions))
-    return N_ENVS / (ms / 1e3)
+    return env.num_envs / (ms / 1e3)
 
 
 def rollout_rate(env, actions, on):
@@ -519,7 +601,10 @@ def profile_steps(env, actions, on):
     named = {}
     for key, tag in (("physics_step_kernel", "physics"),
                      ("cast_rays_kernel", "raycast"),
-                     ("best_positions_kernel", "planner")):
+                     ("best_positions_kernel", "planner"),
+                     ("agent_geometry_kernel", "agent_geometry"),
+                     ("pair_collisions_kernel", "pair_collisions"),
+                     ("neighbor_obs_kernel", "neighbor_obs")):
         named[tag] = sum(e.time_range.elapsed_us() for e in device
                          if key in e.name) / 1e3 / n
     return wall, busy, 1.0 - busy / wall, len(device) / n, named
@@ -606,7 +691,7 @@ def ppo_spec(shape, lb=4096, mb=262144, norm_n=0):
 def train_spec(name, num_envs, rollout_steps=64):
     """The spec of init_training(name, num_envs) at the PPOConfig defaults
     with ``rollout_steps``-step rollouts: 4 minibatches an epoch."""
-    n_agents = {path[0]: path[1] for path in MAIN_PATHS}[name]
+    n_agents = {path[0]: path[2] for path in MAIN_PATHS}[name]
     return ppo_spec(PPO_BUILDS[name],
                     mb=rollout_steps * n_agents * num_envs // 4)
 
@@ -1029,6 +1114,223 @@ def planner_phase_2(errs, real_inputs):
     return ms, plain_ms, bound_ms, by
 
 
+def road_inputs(env):
+    """The road kernels' operands of ``env``'s current state: ``(tables,
+    pos, rot, path_id)`` and the neighbour kernel's ``(A, k, half_l, half_w,
+    pos, rot, vel, dn)``, as the scenario passes them."""
+    sc, s = env.scenario, env.world.state
+    rot = s.rot[..., 0]
+    geometry = (sc._tables, s.pos, rot, sc.path_id)
+    neighbors = (sc.n_agents, sc.n_nearing_agents_observed,
+                 (sc.l_f + sc.l_r) / 2.0, sc.agent_width / 2.0, s.pos, rot,
+                 s.vel, sc.distances_agents / sc.normalizer_distance_lanelet)
+    return geometry, neighbors
+
+
+def geometry_vs_plain(tables, pos, rot, path_id, label, exact=False):
+    """The agent-geometry and pair kernels (with collisions, twice, and
+    without) against geometry_plain on the card; with ``exact`` (poses on
+    path vertices) no index may move and no flag flip.  Returns the largest
+    |kernel - plain| of each kernel's outputs."""
+    import torch
+    from torch_helpers import geometry_diff
+    from vectorizedmultiagentsimulator_tpu_torch.ops import road_geometry as rg
+    from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        road_geometry_cuda as rgc,
+    )
+
+    with torch.no_grad():
+        got = rgc.launch_geometry(tables, True, pos, rot, path_id)
+        again = rgc.launch_geometry(tables, True, pos, rot, path_id)
+        bare = rgc.launch_geometry(tables, False, pos, rot, path_id)
+        ref = rg.geometry_plain(tables, True, pos, rot, path_id)
+        torch.cuda.synchronize()
+        report = geometry_diff(tables, pos, rot, path_id, got, ref)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        same = same and all(torch.equal(a, b) for a, b in zip(got, bare))
+
+        def err(idx):
+            return max(float((got[i] - ref[i]).abs().max()) for i in idx)
+
+        agent_err, pair_err = err((0, 1, 2, 3, 4, 6, 7, 8)), err((5, 9))
+        flags = [int(ref[i].sum()) for i in (6, 7, 8, 9)]
+    log(f"[2] road geometry {label}: B={pos.shape[0]} A={pos.shape[1]}"
+        f" crossings in the plain version (lanelets, entry, exit, agent"
+        f" pairs) {flags}; max|kernel-plain| agent geometry {agent_err:.3e},"
+        f" pair {pair_err:.3e}; closest index moved in {report['moved']}"
+        f" rows, flags flipped {report['flipped']}, of those not near a tie"
+        f" or touch (with out-of-tolerance elements) {report['bad']}; repeat"
+        f" and collision-free launches bit-identical: {same}")
+    exact_ok = not exact or (report["moved"] == 0 and report["flipped"] == 0
+                             and torch.equal(got[0], ref[0])
+                             and torch.equal(got[4], ref[4]))
+    if report["bad"] or not same or not exact_ok:
+        raise AssertionError(
+            f"{label}: road geometry kernels disagree with plain ({report},"
+            f" repeat identical {same}, exact {exact_ok})")
+    return agent_err, pair_err
+
+
+def neighbors_vs_plain(args, label):
+    """The neighbour kernel (twice) against neighbor_obs_plain on the card:
+    nd bit-equal, the rest within 1e-5 + 1e-5|ref|; returns the largest
+    |kernel - plain|."""
+    import torch
+    from torch_helpers import neighbor_diff
+    from vectorizedmultiagentsimulator_tpu_torch.ops import road_geometry as rg
+    from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        road_geometry_cuda as rgc,
+    )
+
+    with torch.no_grad():
+        got = rgc.fused_neighbor_obs(*args)
+        again = rgc.fused_neighbor_obs(*args)
+        ref = rg.neighbor_obs_plain(*args)
+        torch.cuda.synchronize()
+        report = neighbor_diff(got, ref)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"[2] neighbour obs {label}: B={args[4].shape[0]} A={args[0]}"
+        f" k={args[1]} nd bit-equal {report['nd_equal']}, max|kernel-plain|"
+        f" {report['max_abs_err']:.3e}, out of tolerance {report['bad']};"
+        f" repeat launch bit-identical: {same}")
+    if not report["nd_equal"] or report["bad"] or not same:
+        raise AssertionError(f"{label}: neighbour kernel disagrees with plain"
+                             f" ({report}, repeat identical {same})")
+    return report["max_abs_err"]
+
+
+def road_bounds_ms(tables, pos, rot, path_id, neighbor_args):
+    """The least time of each road kernel's call on the H100 for these
+    inputs, (ms, "bytes" | "operations") each: every operand read once and
+    every output written once, the path tables once; the operations
+    (ROAD_OPS) this data needs.  Agent geometry: every real centre-line
+    segment, then those up to the first within 1e-5 of the least distance,
+    5 points against every real segment of each boundary and, with
+    collisions, 4 edges against each of them where no edge crosses (one
+    test where one does, which only lowers the bound), 8 entry/exit tests
+    on paths that are not loops.  Pair: each agent's rectangle and, per
+    other agent, its rectangle and 16 tests (1 where they cross).
+    Neighbour: k rounds of A compares and a neighbour's work."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.ops import road_geometry as rg
+
+    O = ROAD_OPS
+    B, A = pos.shape[:2]
+    with torch.no_grad():
+        pid = path_id.long()
+        n = tables.n_points[pid].long()
+        seg_c = torch.clamp_min(n - 1, 1)
+        _, first_plus_1 = rg.get_perpendicular_distances(
+            pos, tables.center[pid], tables.n_points[pid])
+        seg_b = (torch.clamp_min(tables.n_left[pid].long() - 1, 1)
+                 + torch.clamp_min(tables.n_right[pid].long() - 1, 1))
+        ref = rg.geometry_plain(tables, True, pos, rot, path_id)
+        lane = ref[6] > 0.5
+        ops = ((seg_c + first_plus_1) * O["seg"] + seg_b * 5 * O["seg"]
+               + torch.where(lane, 1, seg_b * 4) * O["cross"] + O["rect"]
+               + tables.K * O["short"])
+        if tables.entry_exit:
+            ops = ops + (~tables.is_loop[pid]).long() * 8 * O["cross"]
+        table_bytes = sum(x.numel() * x.element_size()
+                          for x in tables.kernel_tensors)
+        agent = bound(B * A * (16 + 4 * (1 + 5 + 5 + 1 + 2 * tables.K + 3))
+                      + table_bytes, float(ops.sum()))
+        hits = int(ref[9].sum())
+        pair_ops = (B * A * A * O["rect"]
+                    + O["cross"] * (16 * (B * A * (A - 1) - hits) + hits))
+        pair = bound(B * A * (12 + 4 * (10 + A)), pair_ops)
+    k = neighbor_args[1]
+    neighbor = bound(B * A * (20 + 4 * A) + B * A * k * 14 * 4,
+                     B * A * (3 + k * (A + O["neighbor"])))
+    return {"agent_geometry": agent, "pair_collisions": pair,
+            "neighbor_obs": neighbor}
+
+
+def road_phase_2(errs):
+    """Phase 2 for the road kernels: the cases of the docstring; returns
+    {kernel: (ms, plain_ms, bound_ms, bound_by)} at road_traffic@10k after
+    10 steps, the main path's inputs."""
+    import numpy as np
+    import torch
+    from torch_helpers import (
+        poses_at_path_ends,
+        poses_near_path_ends,
+        random_neighbor_inputs,
+    )
+    from vectorizedmultiagentsimulator_tpu_torch.ops import road_geometry as rg
+    from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        road_geometry_cuda as rgc,
+    )
+
+    envs = PATH_ENVS["road_traffic"]
+    for kwargs, tag in ((dict(), ""), (ROAD_MAP3, " map '3' (10 agents)")):
+        env = make_path_env("road_traffic", envs, **kwargs)
+        label = f"road_traffic@{envs}{tag}"
+        (tables, pos, rot, pid), nargs = road_inputs(env)
+        errs["geometry"].append(geometry_vs_plain(
+            tables, pos, rot, pid, f"{label} reset poses", exact=True))
+        errs["neighbor_obs"].append(neighbors_vs_plain(
+            nargs, f"{label} reset poses"))
+        g = torch.Generator(device="cuda").manual_seed(4)
+        jpos = (pos + (torch.rand(pos.shape, generator=g, device="cuda")
+                       - 0.5) * 0.2).contiguous()
+        jrot = (rot + (torch.rand(rot.shape, generator=g, device="cuda")
+                       - 0.5)).contiguous()
+        errs["geometry"].append(geometry_vs_plain(
+            tables, jpos, jrot, pid, f"{label} jittered poses"))
+        lpos, lrot = poses_near_path_ends(tables, pid, seed=6)
+        errs["geometry"].append(geometry_vs_plain(
+            tables, lpos, lrot, pid,
+            f"{label} on vertices before the paths' ends", exact=True))
+        if tables.entry_exit:
+            epos, erot = poses_at_path_ends(tables, pid, seed=5)
+            errs["geometry"].append(geometry_vs_plain(
+                tables, epos, erot, pid,
+                f"{label} across entry and exit segments"))
+        for a in random_actions(env, 10, seed=5):
+            env.step(a)
+        (tables, pos, rot, pid), nargs = road_inputs(env)
+        errs["geometry"].append(geometry_vs_plain(
+            tables, pos, rot, pid, f"{label} after 10 steps"))
+        errs["neighbor_obs"].append(neighbors_vs_plain(
+            nargs, f"{label} after 10 steps"))
+        if not tag:
+            main_inputs = (tables, pos, rot, pid, nargs)
+        del env
+    inputs = [torch.as_tensor(x, device="cuda")
+              for x in random_neighbor_inputs(envs, 20, seed=6)]
+    errs["neighbor_obs"].append(neighbors_vs_plain(
+        (20, 2, 0.08, 0.04, *inputs), f"random inputs at {envs}"))
+
+    tables, pos, rot, pid, nargs = main_inputs
+    calls = {
+        "agent_geometry": (
+            lambda: rgc.launch_agent_geometry(tables, True, pos, rot, pid),
+            lambda: rg.agent_geometry_plain(tables, True, pos, rot, pid)),
+        "pair_collisions": (
+            lambda: rgc.launch_pair_collisions(tables, pos, rot),
+            lambda: rg.pair_collisions_plain(tables, pos, rot)),
+        "neighbor_obs": (lambda: rgc.fused_neighbor_obs(*nargs),
+                         lambda: rg.neighbor_obs_plain(*nargs)),
+    }
+    bounds = road_bounds_ms(tables, pos, rot, pid, nargs)
+    times = {}
+    with torch.no_grad():
+        for name, (call, plain) in calls.items():
+            for _ in range(3):
+                call()
+                plain()
+            ms = cuda_time_ms(call, 50)
+            dev_ms = device_ms(call, 10, f"{name}_kernel")
+            plain_ms = cuda_time_ms(plain, 10)
+            bound_ms, by = bounds[name]
+            times[name] = (ms, plain_ms, bound_ms, by)
+            log(f"[2] {name} kernel at road_traffic@{envs} after 10 steps:"
+                f" {ms:.5f} ms a call (CUDA events), {dev_ms:.5f} ms device,"
+                f" plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({by})")
+    return times
+
+
 def main():
     import torch
 
@@ -1046,6 +1348,7 @@ def main():
         physics_cuda,
         ppo_update_cuda,
         raycast_cuda,
+        road_geometry_cuda,
     )
     from physics_configs import CONFIGS
     from torch_helpers import build_world, random_step_inputs
@@ -1064,7 +1367,7 @@ def main():
     t0 = time.perf_counter()
     ppo_specs = {k: ppo_spec(v) for k, v in PPO_BUILDS.items()}
     builds = [physics_cuda.build, raycast_cuda.build,
-              football_policy_cuda.build] + [
+              football_policy_cuda.build, road_geometry_cuda.build] + [
         (lambda sp=sp: ppo_update_cuda.build(sp)) for sp in ppo_specs.values()
     ]
     with ThreadPoolExecutor(len(builds)) as pool:
@@ -1072,14 +1375,19 @@ def main():
     physics_cuda._library()
     raycast_cuda._library()
     football_policy_cuda._library()
+    for symbol in ("vmt_road_agent_geometry", "vmt_road_pair_collisions",
+                   "vmt_road_neighbor_obs"):
+        road_geometry_cuda._library(symbol)
     log(f"[1] built {len(libs)} libraries ("
         f"{', '.join(sorted({os.path.basename(p) for p in libs}))}) in"
         f" {time.perf_counter() - t0:.2f} s")
-    tags = ["physics_step", "raycast", "football_policy"] + [
+    tags = ["physics_step", "raycast", "football_policy", "road_geometry"] + [
         f"ppo_update {k} {PPO_BUILDS[k]}" for k in ppo_specs]
     for tag, lib in zip(tags, libs):
         with open(os.path.join(os.path.dirname(lib), "build.log")) as f:
             for line in f:
+                if "Compiling entry function" in line:
+                    log(f"[1] ptxas {tag}: entry {kernel_name(line)}")
                 if "registers" in line or "spill" in line:
                     log(f"[1] ptxas {tag}: {line.strip()}")
     for k, sp in ppo_specs.items():
@@ -1101,9 +1409,9 @@ def main():
         # Each main path at its own shapes: from its reset state, from
         # random inputs, and after 10 steps (so that LIDAR rays hit), where
         # every agent's LIDAR is cast too.
-        env = make_path_env(name, N_ENVS)
+        env = make_path_env(name)
         w = env.world
-        label = f"{name}@{N_ENVS}"
+        label = f"{name}@{env.num_envs}"
         errs.append(kernel_vs_plain(w, state_inputs(w), f"{label} reset"))
         r_inputs = random_step_inputs(w, spread=PATH_SPREAD.get(name, 0.3),
                                       seed=3)
@@ -1207,18 +1515,28 @@ def main():
     plan_ms, plan_plain_ms, plan_bound, plan_by = planner_phase_2(
         planner_errs, planner_real)
     del planner_real
+    road_errs = {"geometry": [], "neighbor_obs": []}
+    road_times = road_phase_2(road_errs)
     ppo_errs = []
     ppo_ms, ppo_plain_ms, ppo_bound, ppo_by = ppo_phase_2(ppo_errs)
 
     # ---- 3: the main paths ---- #
     launches = {"physics_step": 0, "raycast": 0, "football_policy": 0,
                 "ppo_update": 0}
-    for name, n_agents, obs_dim, casts, plans in MAIN_PATHS:
-        steps, cast_count, plan_count = main_path(name, n_agents, obs_dim,
-                                                  casts, plans)
+    launches.update(dict.fromkeys(road_geometry_cuda.KERNELS, 0))
+    road_map3 = ("road_traffic", PATH_ENVS["road_traffic"], 10, 32, 0, 0,
+                 (2, 1, 1))
+    for path, kwargs in [(p, {}) for p in MAIN_PATHS] + [(road_map3,
+                                                          ROAD_MAP3)]:
+        label = (f"road_traffic@{path[1]} map '3' (10 agents)" if kwargs
+                 else None)
+        steps, cast_count, plan_count, road = main_path(*path, label=label,
+                                                        **kwargs)
         launches["physics_step"] += steps
         launches["raycast"] += cast_count
         launches["football_policy"] += plan_count
+        for kernel, count in zip(road_geometry_cuda.KERNELS, road):
+            launches[kernel] += count
     for name, *_ in MAIN_PATHS:
         cuda_vs_cpu(name)
     for path in TRAIN_PATHS:
@@ -1229,12 +1547,12 @@ def main():
 
     # ---- 4: rollout rates, kernels on vs off, in turns ---- #
     for name, *_ in MAIN_PATHS:
-        env = make_path_env(name, N_ENVS)
+        env = make_path_env(name)
         actions = random_actions(env, N_STEPS, seed=7)
         rates = {True: [], False: []}
         for on in (True, False, False, True):
             rates[on].append(rollout_rate(env, actions, on))
-        log(f"[4] {name}@{N_ENVS} {N_STEPS}-step rollout env-steps/s:"
+        log(f"[4] {name}@{env.num_envs} {N_STEPS}-step rollout env-steps/s:"
             f" kernels {rates[True][0]:.6g} {rates[True][1]:.6g},"
             f" plain {rates[False][0]:.6g} {rates[False][1]:.6g}")
         del env, actions
@@ -1243,16 +1561,20 @@ def main():
 
     # ---- 5: where a step's time goes ---- #
     for name, *_ in MAIN_PATHS:
-        env = make_path_env(name, N_ENVS)
+        env = make_path_env(name)
         actions = random_actions(env, 50, seed=8)
         for on in (True, False):
             wall, busy, idle, n_kernels, named = profile_steps(env, actions, on)
-            log(f"[5] {name}@{N_ENVS} {'kernels' if on else 'plain'}: wall"
-                f" {wall:.4f} ms/step, device busy {busy:.4f} ms/step, idle"
-                f" share {idle:.4f}, {n_kernels:.1f} device kernels/step,"
-                f" physics kernel {named['physics']:.4f} ms/step, ray-cast"
-                f" kernel {named['raycast']:.4f} ms/step, planner kernel"
-                f" {named['planner']:.4f} ms/step")
+            log(f"[5] {name}@{env.num_envs} {'kernels' if on else 'plain'}:"
+                f" wall {wall:.4f} ms/step, device busy {busy:.4f} ms/step,"
+                f" idle share {idle:.4f}, {n_kernels:.1f} device"
+                f" kernels/step, physics kernel {named['physics']:.4f}"
+                f" ms/step, ray-cast kernel {named['raycast']:.4f} ms/step,"
+                f" planner kernel {named['planner']:.4f} ms/step, road"
+                f" kernels (agent geometry, pair, neighbour)"
+                f" {named['agent_geometry']:.4f}"
+                f" {named['pair_collisions']:.4f}"
+                f" {named['neighbor_obs']:.4f} ms/step")
         del env, actions
     for name, num_envs in TRAIN_CELLS:
         profile_training(name, num_envs)
@@ -1312,6 +1634,28 @@ def main():
             # No single PyTorch call computes a PPO minibatch's gradients.
             "library_ms": None,
         },
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "vectorizedmultiagentsimulator_tpu_torch/csrc/road_geometry.cu",
+            "replaces": f"vectorizedmultiagentsimulator_tpu/ops/road_geometry_pallas.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": err,
+            "ms": road_times[name][0],
+            "plain_ms": road_times[name][1],
+            "bound_ms": road_times[name][2],
+            "bound_by": road_times[name][3],
+            # No single PyTorch call computes road_traffic's geometry.
+            "library_ms": None,
+        }
+        for name, line, err in (
+            ("agent_geometry", 183,
+             max(e[0] for e in road_errs["geometry"])),
+            ("pair_collisions", 479,
+             max(e[1] for e in road_errs["geometry"])),
+            ("neighbor_obs", 551, max(road_errs["neighbor_obs"])),
+        )
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

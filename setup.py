@@ -18,7 +18,11 @@ setup(
             "scenarios_data/road_traffic/*.xml",
             "scenarios_data/road_traffic/*.md",
         ],
-        "vectorizedmultiagentsimulator_tpu_torch": ["csrc/*.cu"],
+        "vectorizedmultiagentsimulator_tpu_torch": [
+            "csrc/*.cu",
+            "scenarios_data/road_traffic/*.xml",
+            "scenarios_data/road_traffic/*.md",
+        ],
     },
     python_requires=">=3.10",
     install_requires=["jax", "flax", "numpy"],

@@ -1,6 +1,6 @@
-"""The physics, ray-cast, planner and PPO-update kernels on the card
-against their plain versions, and the masked reset and the trainer under
-the host-sync check.  These tests need an NVIDIA GPU and nvcc; elsewhere they skip.
+"""The physics, ray-cast, planner, PPO-update and road-geometry kernels on
+the card against their plain versions, and the masked reset and the
+trainer under the host-sync check.  These tests need an NVIDIA GPU and nvcc; elsewhere they skip.
 This file imports no JAX, so on a machine with PyTorch only it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -18,8 +18,13 @@ from physics_configs import CONFIGS
 from torch_helpers import (
     MANY_ENTITIES,
     build_world,
+    geometry_diff,
+    neighbor_diff,
     planner_fields,
     planner_selection_diff,
+    poses_at_path_ends,
+    poses_near_path_ends,
+    random_neighbor_inputs,
     random_planner_inputs,
     random_ppo_inputs,
     random_step_inputs,
@@ -32,6 +37,8 @@ from vectorizedmultiagentsimulator_tpu_torch.ops import (
     physics_cuda,
     ppo_update_cuda,
     raycast_cuda,
+    road_geometry,
+    road_geometry_cuda,
 )
 
 pytestmark = pytest.mark.cuda
@@ -71,6 +78,7 @@ def cuda():
     physics_cuda.build()
     raycast_cuda.build()
     football_policy_cuda.build()
+    road_geometry_cuda.build()
 
 
 def _compare(world, inputs):
@@ -236,7 +244,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.parametrize("scenario", [
     "transport", "simple_spread", "navigation", "flocking", "balance",
-    "dispersion", "simple_speaker_listener", "football"])
+    "dispersion", "simple_speaker_listener", "football", "road_traffic"])
 def test_masked_reset_no_sync(cuda, scenario):
     """``reset_at`` with a bool mask (the trainer's reset in every step)
     reads nothing from the device and leaves the other envs alone."""
@@ -359,3 +367,142 @@ def test_ppo_kernel_refuses_a_trunk_it_does_not_take(cuda):
         torch_ppo.init_training(
             "transport", 256, 0,
             torch_ppo.PPOConfig(rollout_steps=8, hidden=256, fused_block=256))
+
+
+ROAD_MAP3 = dict(map_type="3", n_agents=10)
+
+
+@pytest.mark.parametrize("kwargs,poses", [
+    ({}, "reset"), ({}, "jitter"), ({}, "last"), (ROAD_MAP3, "reset"),
+    (ROAD_MAP3, "ends")])
+def test_road_geometry_kernels_match_plain(cuda, kwargs, poses):
+    """The agent-geometry and pair kernels against geometry_plain
+    (torch_helpers.geometry_diff; on path vertices, at reset or just before
+    the paths' ends, no index moves and no flag flips), with and without
+    collisions, and two
+    launches bit-identical; the neighbour kernel at the same poses (nd
+    bit-equal)."""
+    env = vmt_torch.make_env("road_traffic", num_envs=B, device="cuda",
+                             seed=0, **kwargs)
+    sc, s = env.scenario, env.world.state
+    pos, rot = s.pos, s.rot[..., 0]
+    if poses == "jitter":
+        g = torch.Generator(device="cuda").manual_seed(3)
+        pos = (pos + (torch.rand(pos.shape, generator=g, device="cuda")
+                      - 0.5) * 0.2).contiguous()
+        rot = (rot + (torch.rand(rot.shape, generator=g, device="cuda")
+                      - 0.5)).contiguous()
+    elif poses == "ends":
+        pos, rot = poses_at_path_ends(sc._tables, sc.path_id, seed=4)
+    elif poses == "last":
+        pos, rot = poses_near_path_ends(sc._tables, sc.path_id, seed=4)
+    before = dict(road_geometry_cuda.LAUNCHES)
+    got = road_geometry_cuda.fused_geometry(sc._tables, True, pos, rot,
+                                            sc.path_id)
+    again = road_geometry_cuda.fused_geometry(sc._tables, True, pos, rot,
+                                              sc.path_id)
+    bare = road_geometry_cuda.fused_geometry(sc._tables, False, pos, rot,
+                                             sc.path_id)
+    ref = road_geometry.geometry_plain(sc._tables, True, pos, rot, sc.path_id)
+    torch.cuda.synchronize()
+    assert road_geometry_cuda.LAUNCHES["agent_geometry"] == (
+        before["agent_geometry"] + 3)
+    assert road_geometry_cuda.LAUNCHES["pair_collisions"] == (
+        before["pair_collisions"] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, bare))
+    report = geometry_diff(sc._tables, pos, rot, sc.path_id, got, ref)
+    assert report["bad"] == 0, report
+    if poses in ("reset", "last"):
+        assert report["moved"] == report["flipped"] == 0, report
+        assert torch.equal(got[4], ref[4]) and torch.equal(got[0], ref[0])
+    if poses == "ends":
+        assert float(ref[7].sum()) > 0 and float(ref[8].sum()) > 0
+    args = (sc.n_agents, sc.n_nearing_agents_observed,
+            (sc.l_f + sc.l_r) / 2.0, sc.agent_width / 2.0, pos, rot, s.vel,
+            sc.distances_agents / sc.normalizer_distance_lanelet)
+    got = road_geometry_cuda.fused_neighbor_obs(*args)
+    ref = road_geometry.neighbor_obs_plain(*args)
+    report = neighbor_diff(got, ref)
+    assert report["nd_equal"] and report["bad"] == 0, report
+
+
+def test_neighbor_kernel_matches_plain_random(cuda):
+    args = [torch.as_tensor(x, device="cuda")
+            for x in random_neighbor_inputs(B, 20, seed=5)]
+    before = road_geometry_cuda.LAUNCHES["neighbor_obs"]
+    got = road_geometry_cuda.fused_neighbor_obs(20, 2, 0.08, 0.04, *args)
+    ref = road_geometry.neighbor_obs_plain(20, 2, 0.08, 0.04, *args)
+    torch.cuda.synchronize()
+    assert road_geometry_cuda.LAUNCHES["neighbor_obs"] == before + 1
+    report = neighbor_diff(got, ref)
+    assert report["nd_equal"] and report["bad"] == 0, report
+    with pytest.raises(ValueError, match="mixed devices"):
+        road_geometry_cuda.fused_neighbor_obs(20, 2, 0.08, 0.04,
+                                              args[0].cpu(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        road_geometry_cuda.fused_neighbor_obs(
+            20, 2, 0.08, 0.04, args[0], args[1], args[2],
+            args[3].transpose(1, 2))
+
+
+def test_road_autograd_is_the_plain_versions(cuda):
+    """Gradients through both wrappers on CUDA tensors equal those through
+    the plain versions on the card (the backward re-runs them)."""
+    env = vmt_torch.make_env("road_traffic", num_envs=64, device="cuda",
+                             seed=0)
+    sc, s = env.scenario, env.world.state
+    g = torch.Generator(device="cuda").manual_seed(6)
+    pos0 = s.pos + (torch.rand(s.pos.shape, generator=g, device="cuda")
+                    - 0.5) * 0.2
+    rot0 = s.rot[..., 0].clone()
+
+    def geometry_grads(fn):
+        pos = pos0.clone().requires_grad_(True)
+        rot = rot0.clone().requires_grad_(True)
+        out = fn(sc._tables, True, pos, rot, sc.path_id)
+        sum((o**2).sum() for o in out).backward()
+        return pos.grad, rot.grad
+
+    for got, ref in zip(geometry_grads(road_geometry_cuda.fused_geometry),
+                        geometry_grads(road_geometry.geometry_plain)):
+        assert bool(torch.isfinite(got).all()) and float(got.abs().sum()) > 0
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    args = [torch.as_tensor(x, device="cuda")
+            for x in random_neighbor_inputs(64, 6, seed=7)]
+
+    def neighbor_grads(fn):
+        leaves = [x.clone().requires_grad_(True) for x in args]
+        out = fn(6, 2, 0.08, 0.04, *leaves)
+        sum((o**2).sum() for o in out).backward()
+        return [x.grad for x in leaves]
+
+    for got, ref in zip(neighbor_grads(road_geometry_cuda.fused_neighbor_obs),
+                        neighbor_grads(road_geometry.neighbor_obs_plain)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kwargs,agent_geometry", [({}, 1), (ROAD_MAP3, 2)])
+def test_road_traffic_launches_no_sync(cuda, kwargs, agent_geometry):
+    """road_traffic on the card: a physics launch, one of each road kernel
+    a step (map '3' re-places agents in done(): a second agent-geometry
+    launch), and no host sync over 5 steps."""
+    env = vmt_torch.make_env("road_traffic", num_envs=B, device="cuda",
+                             seed=0, **kwargs)
+    actions = [env.get_random_actions() for _ in range(5)]
+    torch.cuda.synchronize()
+    steps = physics_cuda.LAUNCHES
+    road = dict(road_geometry_cuda.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for a in actions:
+            obs, rews, dones, _ = env.step(a)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert physics_cuda.LAUNCHES == steps + 5
+    expected = {"agent_geometry": 5 * agent_geometry, "pair_collisions": 5,
+                "neighbor_obs": 5}
+    assert {k: road_geometry_cuda.LAUNCHES[k] - road[k]
+            for k in road} == expected
+    assert all(o.shape == (B, 32) and bool(torch.isfinite(o).all())
+               for o in obs)

@@ -168,7 +168,7 @@ def test_port_never_imports_jax():
         "import vectorizedmultiagentsimulator_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "for name in ('transport', 'navigation', 'football'):\n"
+        "for name in ('transport', 'navigation', 'football', 'road_traffic'):\n"
         "    env = p.make_env(name, num_envs=2, device='cpu')\n"
         "    env.step(env.get_random_actions())\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"

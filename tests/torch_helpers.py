@@ -16,6 +16,7 @@ from vectorizedmultiagentsimulator_tpu_torch.core import (
     Sphere,
     World,
 )
+from vectorizedmultiagentsimulator_tpu_torch.ops import road_geometry
 from vectorizedmultiagentsimulator_tpu_torch.utils import STATE_FIELDS
 
 
@@ -176,3 +177,191 @@ def planner_selection_diff(fpc, p, inputs, got):
     worst_gap = float(gap.max()) if gap.numel() else 0.0
     return (same_err, int(flipped.sum()), int((gap > PLANNER_TIE).sum()),
             worst_gap)
+
+
+def random_neighbor_inputs(B, A, seed):
+    """The neighbour kernel's operands as float32 numpy arrays drawn from
+    ``seed``: ``(pos [B, A, 2], rot [B, A], vel [B, A, 2], dn [B, A, A])``,
+    ``dn`` the mutual distances with a diagonal above the largest."""
+    rng = np.random.RandomState(seed)
+    pos = rng.randn(B, A, 2).astype(np.float32)
+    rot = rng.uniform(-3, 3, (B, A)).astype(np.float32)
+    vel = rng.randn(B, A, 2).astype(np.float32)
+    diff = pos[:, :, None] - pos[:, None]
+    d = np.sqrt((diff * diff).sum(-1)).astype(np.float32)
+    big = d.max(axis=(1, 2), keepdims=True) + 1
+    dn = np.where(np.eye(A, dtype=bool)[None], big, d).astype(np.float32)
+    return pos, rot, vel, dn
+
+
+# Road geometry, kernel against plain: continuous outputs within
+# ROAD_ATOL + ROAD_RTOL * |ref|.  A row whose closest centre-line index
+# moved is allowed only at a near tie: the kernel's index must satisfy the
+# first-within-1e-5 rule on the plain version's own distances up to
+# ROAD_TIE.  A flipped crossing flag is allowed only at a near touch: a
+# tested segment pair with an endpoint's cross product within ROAD_TOUCH of
+# 0 (about 1e-5 from the other segment's line) where the crossing test's
+# other condition holds or is on its edge too.
+ROAD_ATOL = ROAD_RTOL = 1e-5
+ROAD_TIE = 1e-6
+ROAD_TOUCH = 1e-6
+
+
+def _segment_distances(point, polyline):
+    """The plain version's distance from ``point [..., 2]`` to every
+    segment of ``polyline [..., P, 2]``: ``[..., P - 1]``."""
+    X, Y = polyline[..., 0], polyline[..., 1]
+    px, py = point[..., 0, None], point[..., 1, None]
+    x0, y0 = X[..., :-1], Y[..., :-1]
+    dx, dy = X[..., 1:] - x0, Y[..., 1:] - y0
+    lsq = dx * dx + dy * dy + 1e-8
+    t = torch.clamp(((px - x0) * dx + (py - y0) * dy) / lsq, 0.0, 1.0)
+    cx = x0 + dx * t - px
+    cy = y0 + dy * t - py
+    return torch.sqrt(cx * cx + cy * cy)
+
+
+def _cross_terms(L1, L2):
+    """The four cross products of ``segments_intersect`` for every pair of
+    segments of ``L1 [..., N1, 2]`` and ``L2 [..., N2, 2]``: ``[..., 4,
+    N1 - 1, N2 - 1]``."""
+    p1, p2 = L1[..., :-1, None, :], L1[..., 1:, None, :]
+    q1, q2 = L2[..., None, :-1, :], L2[..., None, 1:, :]
+    s, r = q2 - q1, p2 - p1
+
+    def cross(a, b):
+        return a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]
+
+    return torch.stack([cross(s, p1 - q1), cross(s, p2 - q1),
+                        cross(r, q1 - p1), cross(r, q2 - p1)], dim=-3)
+
+
+def _near_touch(L1, L2):
+    """[M]: whether a segment pair of row m of ``L1 [M, N1, 2]`` and ``L2
+    [M, N2, 2]`` sits on the edge of the strict crossing test: one
+    segment's endpoint within ROAD_TOUCH (as a cross product) of the other
+    segment's line while the other condition holds or is on its edge too."""
+    d1, d2, d3, d4 = _cross_terms(L1, L2).unbind(-3)
+    p_edge = torch.minimum(d1.abs(), d2.abs()) <= ROAD_TOUCH
+    q_edge = torch.minimum(d3.abs(), d4.abs()) <= ROAD_TOUCH
+    near = (p_edge & ((d3 * d4 < 0) | q_edge)) | (q_edge & (d1 * d2 < 0))
+    return near.reshape(len(L1), -1).any(-1)
+
+
+def geometry_diff(tables, pos, rot, path_id, got, ref):
+    """``got`` (a kernel's ``geometry_plain`` outputs) against ``ref`` (the
+    plain version's) for the poses ``pos [B, A, 2]``, ``rot [B, A]`` and
+    ``path_id [B, A]`` on ``tables``: a dict of the largest |got - ref| over
+    the continuous outputs and over the short-term points of rows whose
+    index did not move, the rows whose closest index moved and the flags
+    that flipped, and ``bad``: the elements out of tolerance, the moved rows
+    that are not near ties and the flipped flags that are not near
+    touches."""
+    with torch.no_grad():
+        cont = [0, 1, 2, 3] + ([5] if len(ref) > 5 else [])
+        worst, bad = 0.0, 0
+        for i in cont:
+            d = (got[i] - ref[i]).abs()
+            worst = max(worst, float(d.max()))
+            bad += int((d > ROAD_ATOL + ROAD_RTOL * ref[i].abs()).sum())
+        st_moved = (got[4] != ref[4]).flatten(2).any(-1)  # [B, A]
+        if bool((~st_moved).any()):
+            worst = max(worst, float((got[4] - ref[4])[~st_moved].abs().max()))
+        moved = int(st_moved.sum())
+        if moved:
+            b, a = torch.nonzero(st_moved, as_tuple=True)
+            pid = path_id[b, a].long()
+            center = tables.center[pid]  # [M, P, 2]
+            n = tables.n_points[pid].long()
+            is_loop = tables.is_loop[pid]
+            dseg = _segment_distances(pos[b, a], center)  # [M, P - 1]
+            j = torch.arange(dseg.shape[-1], device=dseg.device)
+            real = j[None] < torch.clamp_min(n - 1, 1)[:, None]
+            dist = torch.where(real, dseg, torch.inf).amin(-1)
+            thr = dist + 1e-5
+            inside = (dseg <= thr[:, None] + ROAD_TIE) & real
+            outside_before = torch.cumprod(
+                torch.cat([torch.ones_like(dseg[:, :1], dtype=torch.bool),
+                           (dseg >= thr[:, None] - ROAD_TIE)[:, :-1]],
+                          dim=-1).to(torch.uint8), dim=-1).bool()
+            # the short-term points each index would select
+            M = len(pid)
+            st_all, _ = road_geometry.get_short_term_reference_path(
+                center[:, None].expand(-1, len(j), -1, -1),
+                j[None].expand(M, -1) + 1, tables.K,
+                is_loop[:, None].expand(-1, len(j)),
+                n[:, None].expand(-1, len(j)), sample_interval=tables.SI)
+            same = (st_all == got[4][b, a][:, None]).flatten(2).all(-1)
+            ok = (same & inside & outside_before).any(-1)
+            bad += int((~ok).sum())
+        flipped = 0
+        if len(ref) > 5:
+            vertices = ref[5]
+            for i, polys in ((6, (tables.left, tables.right)),
+                             (7, (tables.entry,)), (8, (tables.exit,))):
+                flip = got[i] != ref[i]
+                if not bool(flip.any()):
+                    continue
+                flipped += int(flip.sum())
+                b, a = torch.nonzero(flip, as_tuple=True)
+                pid = path_id[b, a].long()
+                near = torch.zeros(len(b), dtype=torch.bool,
+                                   device=vertices.device)
+                for table in polys:
+                    near |= _near_touch(vertices[b, a], table[pid])
+                bad += int((~near).sum())
+            flip = got[9] != ref[9]
+            if bool(flip.any()):
+                flipped += int(flip.sum())
+                b, i, jj = torch.nonzero(flip, as_tuple=True)
+                near = _near_touch(vertices[b, i], vertices[b, jj])
+                bad += int((~near).sum())
+    return {"max_abs_err": worst, "moved": moved, "flipped": flipped,
+            "bad": bad}
+
+
+def neighbor_diff(got, ref):
+    """``got`` (the neighbour kernel's outputs) against ``ref`` (the plain
+    version's): whether nd is bit-equal, the largest |got - ref| and the
+    elements out of ROAD_ATOL + ROAD_RTOL * |ref|."""
+    worst, bad = 0.0, 0
+    for g, r in zip(got, ref):
+        d = (g - r).abs()
+        worst = max(worst, float(d.max()))
+        bad += int((d > ROAD_ATOL + ROAD_RTOL * r.abs()).sum())
+    return {"nd_equal": bool(torch.equal(got[0], ref[0])),
+            "max_abs_err": worst, "bad": bad}
+
+
+def poses_at_path_ends(tables, path_id, seed):
+    """Poses ``(pos [B, A, 2], rot [B, A])`` that put each agent across its
+    path's entry segment (even agents) or exit segment (odd agents), within
+    0.05 of the segment's midpoint at a random heading, so that the entry
+    and exit crossing tests meet hits and misses."""
+    g = torch.Generator(device=path_id.device).manual_seed(seed)
+    B, A = path_id.shape
+    ends = torch.stack([tables.entry, tables.exit], dim=1)[path_id.long()]
+    which = (torch.arange(A, device=path_id.device) % 2)[None, :, None,
+                                                           None, None]
+    seg = torch.gather(ends, 2, which.expand(B, A, 1, 2, 2))[:, :, 0]
+    mid = (seg[:, :, 0] + seg[:, :, 1]) / 2
+    pos = mid + (torch.rand((B, A, 2), generator=g, device=path_id.device)
+                 - 0.5) * 0.1
+    rot = (torch.rand((B, A), generator=g, device=path_id.device) - 0.5) \
+        * 2 * math.pi
+    return pos.contiguous(), rot.contiguous()
+
+
+def poses_near_path_ends(tables, path_id, seed):
+    """Poses on the centre-line vertices 2 to 5 points before each agent's
+    path's last point, heading along the path, so that the short-term path
+    wraps around a loop (or runs into the padding of a path that is not
+    one)."""
+    g = torch.Generator(device=path_id.device).manual_seed(seed)
+    pid = path_id.long()
+    back = torch.randint(2, 6, path_id.shape, generator=g,
+                         device=path_id.device)
+    idx = tables.n_points[pid].long() - back
+    pos = tables.center[pid, idx]
+    seg = tables.center[pid, idx + 1] - pos
+    return pos.contiguous(), torch.atan2(seg[..., 1], seg[..., 0]).contiguous()

@@ -182,11 +182,14 @@ class Environment:
         mask = env_index_to_mask(env_index, self.num_envs, self.device)
         s = self.world.state
         s.steps = torch.where(mask, torch.zeros_like(s.steps), s.steps)
+        # The dones of a reset only report the flags: done_query(in_reset=
+        # True) runs none of a scenario's per-step side effects.
         return self._get_from_scenario(
             get_observations=True,
             get_rewards=False,
             get_infos=True,
             get_dones=True,
+            in_reset=True,
         )
 
     def _select_reset_outputs(
@@ -256,6 +259,7 @@ class Environment:
         get_infos: bool,
         get_dones: bool,
         dict_agent_names: Optional[bool] = None,
+        in_reset: bool = False,
     ):
         if not any((get_observations, get_rewards, get_infos, get_dones)):
             return
@@ -287,16 +291,16 @@ class Environment:
 
         if self.terminated_truncated:
             if get_dones:
-                terminated, truncated = self._done_impl()
+                terminated, truncated = self._done_impl(in_reset)
             result = [obs, rewards, terminated, truncated, infos]
         else:
             if get_dones:
-                dones = self._done_impl()
+                dones = self._done_impl(in_reset)
             result = [obs, rewards, dones, infos]
         return [data for data in result if data is not None]
 
-    def _done_impl(self):
-        terminated = self.scenario.done()
+    def _done_impl(self, in_reset: bool = False):
+        terminated = self.scenario.done_query(in_reset=in_reset)
         if self.max_steps is not None:
             truncated = self.world.state.steps >= self.max_steps
         else:

@@ -4,4 +4,6 @@ from vectorizedmultiagentsimulator_tpu_torch.ops import (  # noqa: F401
     physics_cuda,
     raycast,
     raycast_cuda,
+    road_geometry,
+    road_geometry_cuda,
 )

@@ -109,6 +109,14 @@ class BaseScenario(ABC):
             (self.world.batch_dim,), dtype=torch.bool, device=self.world.device
         )
 
+    def done_query(self, *, in_reset: bool = False):
+        """What the Environment calls for the dones.  ``in_reset=True``
+        marks the query of a reset: a scenario whose ``done()`` has per-step
+        side effects (road_traffic re-places agents there) overrides this
+        and leaves them out on a reset."""
+        del in_reset
+        return self.done()
+
     def info(self, agent: Agent) -> AGENT_INFO_TYPE:
         return {}
 

@@ -14,7 +14,14 @@ _REGISTRY = {
     "dispersion": "vectorizedmultiagentsimulator_tpu_torch.scenarios.dispersion",
     "flocking": "vectorizedmultiagentsimulator_tpu_torch.scenarios.flocking",
     "football": "vectorizedmultiagentsimulator_tpu_torch.scenarios.football",
+    "kinematic_bicycle": (
+        "vectorizedmultiagentsimulator_tpu_torch.scenarios.debug"
+        ".kinematic_bicycle"
+    ),
     "navigation": "vectorizedmultiagentsimulator_tpu_torch.scenarios.navigation",
+    "road_traffic": (
+        "vectorizedmultiagentsimulator_tpu_torch.scenarios.road_traffic"
+    ),
     "transport": "vectorizedmultiagentsimulator_tpu_torch.scenarios.transport",
     "simple_speaker_listener": (
         "vectorizedmultiagentsimulator_tpu_torch.scenarios.mpe"
