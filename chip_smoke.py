@@ -15,6 +15,19 @@ Phases, one line each:
      `boxes_lines`, `hollow_box` and `gravity_friction` worlds of
      tests/physics_configs.py at 4096 envs, and every main path below at
      30k envs from its reset state, from random inputs and after 10 steps.
+     Joints: the `joints` world and torch_helpers.JOINTS_STATIC_ROTATION
+     (static fixed rotations) at 4096 envs, posed as the goldens are (held
+     at 1e-4 + 1e-4|ref|) and from random inputs; asym_joint,
+     ball_trajectory and joint_passage_size at 4096 envs and the two joint
+     main paths from their reset states and from those jittered by up to
+     3e-2 in position and rotation, which stretches every constraint (both
+     held at 1e-4 + 1e-4|ref|), from random inputs and after 10 steps,
+     where a stiff world that exceeds that is held env by env to 4 x the
+     env's max |plain32 - plain64| (from the inputs and 8 copies nudged by
+     an ulp) + 1e-4 + 1e-4|ref|, all but 1/1000 of the envs, and every
+     output to 4 x max |plain32 - plain64| + 1e-4 (torch_helpers.
+     physics_diff; the numbers printed); two launches bit-identical on
+     each joint world.
      Ray cast: every agent's LIDAR of each main path after those 10 steps,
      the tests/golden/raycast.npz scene tiled to 30k envs with random poses,
      and axis-aligned rays against unrotated boxes; each line counts the
@@ -49,8 +62,9 @@ Phases, one line each:
      (nd bit-equal); two launches bit-identical; then each kernel's time
      (CUDA events and device time), its plain version's and its bound;
   3. the main paths: make_env(name, num_envs, device="cuda") for
-     transport, simple_spread, navigation, flocking, balance and football
-     (5v5, the red team's scripted AI) at 30k envs and road_traffic (20
+     transport, simple_spread, navigation, flocking, balance, football
+     (5v5, the red team's scripted AI), joint_passage and buzz_wire (the
+     physics kernel's joint branch) at 30k envs and road_traffic (20
      vehicles, the CPM-Lab map) at 10k, reset, 100 env.step calls under
      torch.cuda.set_sync_debug_mode("error") (any host sync fails the run);
      outputs finite and of the JAX package's shapes; exactly one physics
@@ -62,7 +76,11 @@ Phases, one line each:
      agents every step, likewise (two agent-geometry launches a step).
      Then each CUDA env against the CPU env (plain path) from one state
      over 10 steps at 64 envs, football's two envs fed the same planner
-     samples, road_traffic's without observation noise.  Then training:
+     samples, road_traffic's without observation noise, the joint paths
+     at tests/test_scenario_parity.py's tolerance of the scenario.  The
+     joint worlds that take the plain path: waterfall at 64 envs and the
+     `joints_fixed_rotation` world (rotation inferred per env), no physics
+     launch in 10 steps, finite state.  Then training:
      init_training("transport", 4096) at the PPOConfig defaults and 3
      train_step calls under the same sync check: 16 PPO-update launches and
      64 physics launches an iteration, finite loss and reward, parameters
@@ -77,7 +95,7 @@ Phases, one line each:
      transport@4096 and transport@16384 with the PPO kernel and with the
      autograd update, in turns, and the rollout and update time of an
      iteration;
-  5. a torch.profiler trace of 50 steady steps of each main path,
+  5. a torch.profiler trace of 20 steady steps of each main path,
      kernels on and off: wall ms a step (CUDA events, without the
      profiler), device busy ms a step, idle share, device kernels a step,
      and each kernel's device ms a step; then for each training cell the
@@ -109,6 +127,9 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_ENVS = 30_000
 N_STEPS = 100
+# Phase 5's steady window a path: joint_passage's plain path launches
+# 13,000 device kernels a step, and the profiler's events cost host time.
+PROFILE_STEPS = 20
 # Physics kernel vs plain, one step from identical inputs: the two sum
 # each entity's fp32 forces in another order, and the card's libm is not
 # the CPU's; contact penalties (collision_force 100 over a 1e-3 margin)
@@ -135,8 +156,18 @@ MAIN_PATHS = [
     ("flocking", N_ENVS, 4, 18, 4, 0, (0, 0, 0)),
     ("balance", N_ENVS, 3, 16, 0, 0, (0, 0, 0)),
     ("football", N_ENVS, 5, 88, 0, 1, (0, 0, 0)),
+    ("joint_passage", N_ENVS, 2, 10, 0, 0, (0, 0, 0)),
+    ("buzz_wire", N_ENVS, 2, 6, 0, 0, (0, 0, 0)),
     ("road_traffic", 10_000, 20, 32, 0, 0, (1, 1, 1)),
 ]
+# The joint worlds (joint_force 900 over 10-15 substeps): an ulp grows
+# about 2x a substep, so from inputs far from rest (random, or after 10
+# random steps) the kernel is held to torch_helpers.physics_diff's float64
+# rule where it exceeds ATOL + RTOL|ref|; from the reset state jittered
+# (torch_helpers.jittered_inputs) it is held at ATOL + RTOL|ref|.
+STIFF_PATHS = ("joint_passage", "buzz_wire")
+# The other joint scenarios of phase 2, at 4096 envs.
+JOINT_WORLDS = ("asym_joint", "ball_trajectory", "joint_passage_size")
 PATH_ENVS = {path[0]: path[1] for path in MAIN_PATHS}
 # road_traffic on map '3' (the intersection, 10 agents): its done()
 # re-places the agents that leave through an entry or exit segment every
@@ -154,6 +185,12 @@ PATH_SPREAD = {"football": 1.0}
 # cuda_vs_cpu's extra kwargs: the two envs' generators differ, so
 # road_traffic's observation noise is off there.
 CPU_COMPARE_KWARGS = {"road_traffic": dict(is_add_noise=False)}
+# cuda_vs_cpu's tolerance: (base, growth a step, steps compared, share of
+# envs that may diverge), tests/test_scenario_parity.py's _DEFAULT, or its
+# _STIFF for buzz_wire (15 substeps at joint_force 900: an ulp of the
+# card's sums grows to about 1e-3 in one step).
+CPU_COMPARE_TOL = {"buzz_wire": (3e-3, 2.2, 4, 0.5),
+                   "joint_passage": (5e-4, 1.6, 10, 0.25)}
 # Paths whose step ends on discrete crossing flags (a collision ends the
 # episode): an ulp of the card's cos/sin against the CPU's can flip a
 # touching crossing, so, as for a scripted AI's near ties, an env may leave
@@ -163,11 +200,12 @@ DISCRETE_FLAGS = ("road_traffic",)
 # memory and fp32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-# Arithmetic per pair class and substep of csrc/physics_step.cu, and per
+# Arithmetic per pair class and substep of csrc/physics_step.cu (per joint
+# constraint, and the fixed-rotation torque of one that does not rotate), and per
 # ray and entity class of csrc/raycast.cu (each sqrt, sin, cos, exp, log
 # and division counted as one operation), counted from the sources.
 PHYSICS_OPS = {"ss": 29, "bs": 131, "ls": 42, "ll": 133, "bl": 470,
-               "bb": 3300, "entity": 25}
+               "bb": 3300, "entity": 25, "joint": 102, "joint_fixed": 17}
 CAST_OPS = {"ray": 3, "sphere": 37, "box": 55, "line": 28}
 # The same for csrc/football_policy.cu: per candidate and teammate, plus
 # the teammate-repulsion term per candidate, teammate and other teammate.
@@ -274,24 +312,50 @@ def max_err(got, ref, atol, rtol):
     return worst, ok
 
 
-def kernel_vs_plain(world, inputs, label):
+def kernel_vs_plain(world, inputs, label, stiff=False):
+    """One launch against the plain version at ATOL + RTOL|ref| or, for a
+    ``stiff`` joint world that exceeds that, torch_helpers.physics_diff's
+    float64 rule.  Returns (max |kernel - plain|, whether the float64 rule
+    decided)."""
     import torch
+    from torch_helpers import physics_diff
     from vectorizedmultiagentsimulator_tpu_torch.ops import physics_cuda
 
     assert world._use_kernel, f"{label}: world does not step through the kernel"
     with torch.no_grad():
         got = physics_cuda.fused_step(world, *inputs)
-        ref = physics_cuda.step_plain(world, *inputs)
     torch.cuda.synchronize()
-    err, ok = max_err(got, ref, ATOL, RTOL)
+    report = physics_diff(world, inputs, got, stiff=stiff)
     pairs = " ".join(f"{c}={len(p)}" for c, p in world._pairs.items() if len(p))
+    joints = len(world._ordered_constraints)
+    extra = ""
+    if "bound" in report:
+        extra = (f" ({report['bad']} elements over {ATOL} + {RTOL}|ref|;"
+                 f" float64 rule: max|plain32-plain64| ="
+                 f" {report['plain_f64_err']:.3e}, bound {report['bound']:.3e};"
+                 f" envs beyond 4 x their own |plain32-plain64|:"
+                 f" {report['bad_envs']} of {world.batch_dim} (at most"
+                 f" {report['allowed_envs']}), largest excess/sensitivity"
+                 f" {report['env_ratio']:.3g})")
     log(f"[2] physics {label}: B={world.batch_dim} N={world._n_entities}"
-        f" {pairs} max|kernel-plain| pos/vel/rot/ang_vel = {err:.3e}")
-    if not ok:
-        raise AssertionError(
-            f"{label}: kernel disagrees with plain beyond {ATOL} + {RTOL}|ref|"
-        )
-    return err
+        f" {pairs}{f' joints={joints}' if joints else ''} max|kernel-plain|"
+        f" pos/vel/rot/ang_vel = {report['max_abs_err']:.3e}{extra}")
+    if not report["ok"]:
+        raise AssertionError(f"{label}: kernel disagrees with plain: {report}")
+    return report["max_abs_err"], "bound" in report
+
+
+def bit_identical(world, inputs, label):
+    """Two launches from the same inputs give the same bits."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.ops import physics_cuda
+
+    with torch.no_grad():
+        a = physics_cuda.fused_step(world, *inputs)
+        b = physics_cuda.fused_step(world, *inputs)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{label}: two launches differ")
+    log(f"[2] physics {label}: two launches bit-identical")
 
 
 def dense_contacts(name, spread=0.3):
@@ -367,6 +431,8 @@ def physics_bound_ms(world, inputs):
                  for x in world._kernel_tables.tensors)
     per_env = sum(PHYSICS_OPS[c] * len(p) for c, p in world._pairs.items())
     per_env += PHYSICS_OPS["entity"] * world._n_entities
+    per_env += PHYSICS_OPS["joint"] * len(world._ordered_constraints)
+    per_env += PHYSICS_OPS["joint_fixed"] * int((~world._joint_rotate).sum())
     ops = world.batch_dim * world._substeps * per_env
     return bound(moved, ops)
 
@@ -490,6 +556,8 @@ def cuda_vs_cpu(name, n_envs=64, n_steps=10):
     g = torch.Generator().manual_seed(2)
     worst = 0.0
     diverged = torch.zeros((n_envs,), dtype=torch.bool)
+    base, growth, compared, share = CPU_COMPARE_TOL.get(
+        name, (5e-4, 1.6, n_steps, 0.0))
     for t in range(n_steps):
         acts = [
             torch.rand((n_envs, env_c.get_agent_action_size(a)), generator=g)
@@ -498,7 +566,11 @@ def cuda_vs_cpu(name, n_envs=64, n_steps=10):
         ]
         out_g = env_g.step([a.cuda() for a in acts])
         out_c = env_c.step(acts)
-        atol = 5e-4 * 1.6**t
+        for x in out_g[0] + out_g[1] + out_c[0] + out_c[1]:
+            assert bool(torch.isfinite(x).all()), f"{name}: not finite"
+        if t >= compared:
+            continue
+        atol = base * growth**t
         for xg, xc in zip(out_g[0] + out_g[1], out_c[0] + out_c[1]):
             d = (xg.cpu() - xc).abs()
             bad = d > atol + 2e-3 * xc.abs()
@@ -507,13 +579,52 @@ def cuda_vs_cpu(name, n_envs=64, n_steps=10):
                 worst = max(worst, float(d[~diverged].max()))
         diverged |= out_g[2].cpu() != out_c[2]
         allowed = n_envs // 8 if scripted or name in DISCRETE_FLAGS else 0
+        allowed = max(allowed, int(share * n_envs))
         if int(diverged.sum()) > allowed:
             raise AssertionError(
                 f"{name}: cuda and cpu differ at step {t} in"
                 f" {int(diverged.sum())} of {n_envs} envs")
     log(f"[3] {name}@{n_envs}: cuda (kernels) vs cpu (plain) over {n_steps}"
-        f" steps, max |diff| obs/rew = {worst:.3e}"
+        f" steps (compared over {min(compared, n_steps)}), max |diff| obs/rew"
+        f" = {worst:.3e}"
         f" ({int(diverged.sum())} of {n_envs} envs left the comparison)")
+
+
+def plain_route_joints(n_envs=64, n_steps=10):
+    """The joint worlds that step through the plain version: waterfall
+    (over the size guard, rotations inferred per env) and the
+    joints_fixed_rotation world (rotation inferred per env): no physics
+    launch in ``n_steps`` steps, finite state."""
+    import torch
+    from physics_configs import CONFIGS
+    from torch_helpers import build_world
+    from vectorizedmultiagentsimulator_tpu_torch.ops import physics_cuda
+
+    env = make_path_env("waterfall", n_envs)
+    world, ents = build_world(CONFIGS["joints_fixed_rotation"], n_envs,
+                              device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for e in ents.values():  # the joint observer writes the rotation
+        e.set_pos(torch.rand((n_envs, 2), generator=g, device="cuda") * 0.5)
+    assert any(k.startswith("joint_fixed_rotation") for k in world.state.extras)
+    for label, w in (("waterfall", env.world),
+                     ("joints_fixed_rotation", world)):
+        assert not w._use_kernel, f"{label} takes the kernel"
+    physics_cuda.LAUNCHES = 0
+    for _ in range(n_steps):
+        obs, rews, dones, _ = env.step(env.get_random_actions())
+        world.step()
+    torch.cuda.synchronize()
+    if physics_cuda.LAUNCHES:
+        raise AssertionError(
+            f"plain-route joint worlds launched the kernel"
+            f" {physics_cuda.LAUNCHES} times")
+    for x in list(obs) + list(rews) + [env.world.state.pos, world.state.pos]:
+        assert bool(torch.isfinite(x).all())
+    log(f"[3] plain route: waterfall@{n_envs} ({len(env.world._pairs['bb'])}"
+        f" box-box pairs, {len(env.world._ordered_constraints)} joint"
+        f" constraints) and joints_fixed_rotation@{n_envs}: {n_steps} steps,"
+        f" physics launches {physics_cuda.LAUNCHES}, outputs finite")
 
 
 @contextlib.contextmanager
@@ -1351,10 +1462,21 @@ def main():
         road_geometry_cuda,
     )
     from physics_configs import CONFIGS
-    from torch_helpers import build_world, random_step_inputs
+    from torch_helpers import (
+        JOINTS_STATIC_ROTATION,
+        build_world,
+        jittered_inputs,
+        posed_step_inputs,
+        random_step_inputs,
+    )
 
     # Plain versions multiply in full fp32.
     torch.backends.cuda.matmul.allow_tf32 = False
+
+    t_run = time.perf_counter()
+
+    def phase_time(k):
+        log(f"[time] phases 1-{k} took {time.perf_counter() - t_run:.1f} s")
 
     # ---- 1: card, versions, build ---- #
     smi = subprocess.run(
@@ -1397,14 +1519,50 @@ def main():
             f" memory a block, {ppo_update_cuda.flat_size(sp)} gradient"
             f" entries and sums")
 
+    phase_time(1)
+
     # ---- 2: kernels vs plain on the card ---- #
-    errs, cast_errs, planner_errs, times = [], [], [], {}
+    errs, stiff_errs, cast_errs, planner_errs, times = [], [], [], [], {}
+
+    def held(result):
+        """File a comparison's error under the rule that held it."""
+        err, by_f64 = result
+        (stiff_errs if by_f64 else errs).append(err)
+
     for cfg in ("spheres", "clamps", "boxes_lines", "hollow_box",
                 "gravity_friction"):
         w, _ = build_world(CONFIGS[cfg], 4096, device="cuda")
-        errs.append(kernel_vs_plain(
+        held(kernel_vs_plain(
             w, random_step_inputs(w, spread=CONFIGS[cfg]["spread"], seed=4), cfg
         ))
+    # The joint branch: the two joint worlds that take the kernel, posed as
+    # the goldens are (held at ATOL + RTOL|ref|) and from random inputs;
+    # then the other joint scenarios at 4096 envs.
+    for label, spec in (("joints", CONFIGS["joints"]),
+                        ("joints_static_rotation", JOINTS_STATIC_ROTATION)):
+        w, ents = build_world(spec, 4096, device="cuda")
+        p_inputs = posed_step_inputs(w, ents, spec, seed=4)
+        held(kernel_vs_plain(w, p_inputs, f"{label} posed"))
+        held(kernel_vs_plain(
+            w, random_step_inputs(w, spec["spread"], seed=4,
+                                  rot_spread=spec.get("rot_spread", math.pi)),
+            f"{label} random", stiff=True))
+        bit_identical(w, p_inputs, label)
+    for name in JOINT_WORLDS:
+        env = make_path_env(name, 4096)
+        w = env.world
+        label = f"{name}@4096"
+        held(kernel_vs_plain(w, state_inputs(w), f"{label} reset"))
+        held(kernel_vs_plain(w, jittered_inputs(state_inputs(w), seed=9),
+                             f"{label} reset jittered"))
+        r_inputs = random_step_inputs(w, spread=0.5, seed=3)
+        held(kernel_vs_plain(w, r_inputs, f"{label} random", stiff=True))
+        for a in random_actions(env, 10, seed=5):
+            env.step(a)
+        held(kernel_vs_plain(w, state_inputs(w), f"{label} 10 steps",
+                             stiff=True))
+        bit_identical(w, r_inputs, label)
+        del env, w, r_inputs
     for name, *_ in MAIN_PATHS:
         # Each main path at its own shapes: from its reset state, from
         # random inputs, and after 10 steps (so that LIDAR rays hit), where
@@ -1412,10 +1570,17 @@ def main():
         env = make_path_env(name)
         w = env.world
         label = f"{name}@{env.num_envs}"
-        errs.append(kernel_vs_plain(w, state_inputs(w), f"{label} reset"))
+        stiff = name in STIFF_PATHS
+        held(kernel_vs_plain(w, state_inputs(w), f"{label} reset"))
+        if stiff:
+            # At rest every joint force is 0: stretch each constraint.
+            held(kernel_vs_plain(w, jittered_inputs(state_inputs(w), seed=9),
+                                 f"{label} reset jittered"))
         r_inputs = random_step_inputs(w, spread=PATH_SPREAD.get(name, 0.3),
                                       seed=3)
-        errs.append(kernel_vs_plain(w, r_inputs, f"{label} random"))
+        held(kernel_vs_plain(w, r_inputs, f"{label} random", stiff=stiff))
+        if stiff:
+            bit_identical(w, r_inputs, label)
         # The planner's operands in the last of the 10 steps.
         planner = football_policy_cuda.fused_best_positions
         captured = []
@@ -1433,7 +1598,8 @@ def main():
         if name == "football":
             planner_real = list(captured)
             dense_contacts(name)
-        errs.append(kernel_vs_plain(w, state_inputs(w), f"{label} 10 steps"))
+        held(kernel_vs_plain(w, state_inputs(w), f"{label} 10 steps",
+                             stiff=stiff))
         s = w.state
         for agent in env.agents:
             for lidar in agent.sensors:
@@ -1465,6 +1631,9 @@ def main():
                     f" {cast_ms:.4f} ms, plain {cast_plain_ms:.4f} ms, bound"
                     f" {cast_bound:.5f} ms ({cast_by})")
         del env, w, s, r_inputs
+    # The physics row of the kernels line: transport@30k, as in the earlier
+    # slices, and joint_passage@30k, the path of the joint branch, under
+    # "joint_path" (every path's time is printed above).
     kernel_ms, plain_ms, (phys_bound, phys_by) = times["transport"]
 
     golden = np.load(os.path.join(ROOT, "tests", "golden", "raycast.npz"))
@@ -1520,6 +1689,8 @@ def main():
     ppo_errs = []
     ppo_ms, ppo_plain_ms, ppo_bound, ppo_by = ppo_phase_2(ppo_errs)
 
+    phase_time(2)
+
     # ---- 3: the main paths ---- #
     launches = {"physics_step": 0, "raycast": 0, "football_policy": 0,
                 "ppo_update": 0}
@@ -1537,6 +1708,7 @@ def main():
         launches["football_policy"] += plan_count
         for kernel, count in zip(road_geometry_cuda.KERNELS, road):
             launches[kernel] += count
+    plain_route_joints()
     for name, *_ in MAIN_PATHS:
         cuda_vs_cpu(name)
     for path in TRAIN_PATHS:
@@ -1544,6 +1716,8 @@ def main():
         launches["ppo_update"] += updates
         launches["physics_step"] += steps
         launches["raycast"] += cast_count
+
+    phase_time(3)
 
     # ---- 4: rollout rates, kernels on vs off, in turns ---- #
     for name, *_ in MAIN_PATHS:
@@ -1559,10 +1733,12 @@ def main():
     for name, num_envs in TRAIN_CELLS:
         train_rates(name, num_envs)
 
+    phase_time(4)
+
     # ---- 5: where a step's time goes ---- #
     for name, *_ in MAIN_PATHS:
         env = make_path_env(name)
-        actions = random_actions(env, 50, seed=8)
+        actions = random_actions(env, PROFILE_STEPS, seed=8)
         for on in (True, False):
             wall, busy, idle, n_kernels, named = profile_steps(env, actions, on)
             log(f"[5] {name}@{env.num_envs} {'kernels' if on else 'plain'}:"
@@ -1578,20 +1754,33 @@ def main():
         del env, actions
     for name, num_envs in TRAIN_CELLS:
         profile_training(name, num_envs)
+    phase_time(5)
 
     print(json.dumps({"kernels": [
         {
             "name": "physics_step",
+            "covers": "six contact classes and joint constraints",
+            "path": f"transport@{PATH_ENVS['transport']}",
             "route": "cuda",
             "source": "vectorizedmultiagentsimulator_tpu_torch/csrc/physics_step.cu",
             "replaces": "vectorizedmultiagentsimulator_tpu/ops/physics_pallas.py:93",
             "launches": launches["physics_step"],
+            # Over the comparisons held at ATOL + RTOL|ref|; those of stiff
+            # joint worlds held by the float64 rule come next.
             "max_abs_err": max(errs),
+            "max_abs_err_float64_rule": max(stiff_errs, default=0.0),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
             "bound_ms": phys_bound,
             "bound_by": phys_by,
             "library_ms": None,
+            "joint_path": {
+                "path": f"joint_passage@{PATH_ENVS['joint_passage']}",
+                "ms": times["joint_passage"][0],
+                "plain_ms": times["joint_passage"][1],
+                "bound_ms": times["joint_passage"][2][0],
+                "bound_by": times["joint_passage"][2][1],
+            },
         },
         {
             "name": "raycast",

@@ -1,5 +1,6 @@
-"""The physics, ray-cast, planner, PPO-update and road-geometry kernels on
-the card against their plain versions, and the masked reset and the
+"""The physics (joints included), ray-cast, planner, PPO-update and
+road-geometry kernels on the card against their plain versions, the
+joint worlds' routes, and the masked reset and the
 trainer under the host-sync check.  These tests need an NVIDIA GPU and nvcc; elsewhere they skip.
 This file imports no JAX, so on a machine with PyTorch only it runs as
 
@@ -16,12 +17,16 @@ import torch
 sys.path.insert(0, os.path.dirname(__file__))
 from physics_configs import CONFIGS
 from torch_helpers import (
+    JOINTS_STATIC_ROTATION,
     MANY_ENTITIES,
     build_world,
     geometry_diff,
+    jittered_inputs,
     neighbor_diff,
+    physics_diff,
     planner_fields,
     planner_selection_diff,
+    posed_step_inputs,
     poses_at_path_ends,
     poses_near_path_ends,
     random_neighbor_inputs,
@@ -44,9 +49,9 @@ from vectorizedmultiagentsimulator_tpu_torch.ops import (
 pytestmark = pytest.mark.cuda
 
 B = 2048
-# Kernel vs plain, one step from identical inputs: fp32 force sums in
-# another order (see chip_smoke.py).
-ATOL = RTOL = 1e-4
+# Physics kernel vs plain, one step from identical inputs: fp32 force sums
+# in another order, held by torch_helpers.physics_diff at 1e-4 + 1e-4|ref|
+# (PHYS_ATOL, PHYS_RTOL; see chip_smoke.py).
 
 # A kernel world with every per-entity feature the kernel covers: world
 # and per-entity static gravity, per-env dyn_gravity, linear and angular
@@ -81,16 +86,18 @@ def cuda():
     road_geometry_cuda.build()
 
 
-def _compare(world, inputs):
+def _compare(world, inputs, stiff=False):
+    """One launch against the plain version: within 1e-4 + 1e-4|plain|, or,
+    for a ``stiff`` joint world, torch_helpers.physics_diff's float64 rule
+    where it exceeds that."""
     assert world._use_kernel
     before = physics_cuda.LAUNCHES
     with torch.no_grad():
         got = physics_cuda.fused_step(world, *inputs)
-        ref = physics_cuda.step_plain(world, *inputs)
     torch.cuda.synchronize()
     assert physics_cuda.LAUNCHES == before + 1
-    for name, g, r in zip(("pos", "vel", "rot", "ang_vel"), got, ref):
-        torch.testing.assert_close(g, r, rtol=RTOL, atol=ATOL, msg=name)
+    report = physics_diff(world, inputs, got, stiff=stiff)
+    assert report["ok"], report
 
 
 @pytest.mark.parametrize("cfg", ["spheres", "clamps", "hollow_box", "features",
@@ -115,12 +122,77 @@ def test_kernel_matches_plain_balance(cuda):
     _compare(w, random_step_inputs(w, 0.5, seed=15))
 
 
+@pytest.mark.parametrize("name", ["joints", "joints_static_rotation"])
+def test_kernel_matches_plain_joints(cuda, name):
+    """The joint branch on the two joint worlds that take the kernel (the
+    ``joints`` config; the static fixed rotation 0.3 and a dist-0
+    constraint that does not rotate), posed as the goldens are (the joint
+    observers place the joint landmarks): within 1e-4 + 1e-4|plain|; two
+    launches bit-identical."""
+    spec = CONFIGS[name] if name in CONFIGS else JOINTS_STATIC_ROTATION
+    world, ents = build_world(spec, B, device="cuda")
+    assert len(world._ordered_constraints) and world._use_kernel
+    inputs = posed_step_inputs(world, ents, spec, seed=13)
+    with torch.no_grad():
+        a = physics_cuda.fused_step(world, *inputs)
+        b = physics_cuda.fused_step(world, *inputs)
+    report = physics_diff(world, inputs, a)
+    assert report["ok"], report
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("scenario", ["asym_joint", "ball_trajectory",
+                                      "buzz_wire", "joint_passage",
+                                      "joint_passage_size"])
+def test_kernel_matches_plain_joint_scenarios(cuda, scenario):
+    """Each joint scenario's world from its reset state and from it with
+    every pose jittered, which stretches every constraint (both within
+    1e-4 + 1e-4|plain|), and from random inputs (torch_helpers.
+    physics_diff's float64 rule where a stiff world exceeds that)."""
+    env = vmt_torch.make_env(scenario, num_envs=B, device="cuda", seed=0)
+    w, s = env.world, env.world.state
+    assert w._use_kernel
+    reset = (s.pos, s.vel, s.rot, s.ang_vel, s.force, s.torque,
+             physics_cuda.stacked_dyn_gravity(w, s.extras))
+    _compare(w, reset)
+    _compare(w, jittered_inputs(reset, seed=17))
+    _compare(w, random_step_inputs(w, 0.5, seed=16), stiff=True)
+
+
+@pytest.mark.parametrize("scenario,kwargs", [
+    ("waterfall", {}), ("physics_joints_fixed_rotation", {})])
+def test_joint_worlds_on_the_plain_route(cuda, scenario, kwargs):
+    """waterfall (over the size guard, rotations inferred per env) and
+    joints_fixed_rotation step through the plain version on the card: no
+    physics launch, finite state."""
+    if scenario == "waterfall":
+        env = vmt_torch.make_env(scenario, num_envs=64, device="cuda",
+                                 seed=0)
+        world = env.world
+        step = lambda: env.step(env.get_random_actions())  # noqa: E731
+    else:
+        world, ents = build_world(CONFIGS["joints_fixed_rotation"], 64,
+                                  device="cuda")
+        for e in ents.values():  # the joint observer writes the rotation
+            e.set_pos(torch.rand((64, 2), device="cuda") * 0.5)
+        assert any(k.startswith("joint_fixed_rotation")
+                   for k in world.state.extras)
+        step = world.step
+    assert not world._use_kernel
+    before = physics_cuda.LAUNCHES
+    for _ in range(3):
+        step()
+    assert physics_cuda.LAUNCHES == before
+    assert bool(torch.isfinite(world.state.pos).all())
+
+
 FIVE_A_SIDE = dict(n_blue_agents=5, n_red_agents=5)
 
 
 @pytest.mark.parametrize("scenario,kwargs,planners", [
     ("transport", {}, 0), ("simple_spread", {}, 0), ("navigation", {}, 0),
-    ("flocking", {}, 0), ("balance", {}, 0), ("football", FIVE_A_SIDE, 1)])
+    ("flocking", {}, 0), ("balance", {}, 0), ("football", FIVE_A_SIDE, 1),
+    ("joint_passage", {}, 0), ("buzz_wire", {}, 0)])
 def test_main_path_one_launch_per_step_no_sync(cuda, scenario, kwargs,
                                                 planners):
     """One physics launch a step, one ray-cast launch per LIDAR measure
@@ -128,7 +200,8 @@ def test_main_path_one_launch_per_step_no_sync(cuda, scenario, kwargs,
     host sync over 5 steps."""
     env = vmt_torch.make_env(scenario, num_envs=B, device="cuda", seed=0,
                              **kwargs)
-    _compare(env.world, random_step_inputs(env.world, 0.3, seed=12))
+    _compare(env.world, random_step_inputs(env.world, 0.3, seed=12),
+             stiff=scenario in ("joint_passage", "buzz_wire"))
     lidars = sum(len(a.sensors) for a in env.agents)
     actions = [env.get_random_actions() for _ in range(5)]
     torch.cuda.synchronize()

@@ -25,11 +25,7 @@ from vectorizedmultiagentsimulator_tpu_torch.ops import (
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
-# The joint configs wait for core/joints.py (ROADMAP Queue 1 item 2).
-NO_JOINTS = sorted(c for c in CONFIGS if not CONFIGS[c].get("joints"))
-
-
-@pytest.mark.parametrize("cfg_name", NO_JOINTS)
+@pytest.mark.parametrize("cfg_name", sorted(CONFIGS))
 def test_physics_golden(cfg_name):
     """Replays ``golden/physics_<cfg>.npz`` exactly as
     ``test_golden_physics.py`` does, at its tolerances."""
@@ -38,12 +34,23 @@ def test_physics_golden(cfg_name):
     world, entities = build_world(cfg, BATCH, device="cpu")
     names = [str(n) for n in data["entity_names"]]
     assert [e.name for e in world.entities] == names
-    for i, n in enumerate(names):
-        e = entities[n]
+    # The recorded t=0 state, written in the config's order as the golden's
+    # generator wrote it, so that the joint observers pose the joint
+    # landmarks (and infer fixed rotations) as they did there.
+    order = [s["name"] for s in cfg.get("agents", [])] + [
+        s["name"] for s in cfg.get("landmarks", [])
+    ]
+    for n in order:
+        e, i = entities[n], names.index(n)
         e.set_pos(torch.as_tensor(data["pos"][0, i]))
         e.set_rot(torch.as_tensor(data["rot"][0, i]))
         e.state.vel = torch.as_tensor(data["vel"][0, i])
         e.state.ang_vel = torch.as_tensor(data["ang_vel"][0, i])
+    for i, e in enumerate(world.entities):
+        for field in ("pos", "rot"):
+            np.testing.assert_allclose(
+                getattr(e.state, field).numpy(), data[field][0, i],
+                atol=1e-6, err_msg=f"{e.name} initial {field}")
 
     agent_names = [s["name"] for s in cfg.get("agents", [])]
     max_frac = 0.125
@@ -67,14 +74,17 @@ def test_physics_golden(cfg_name):
 
 
 def test_step_supported_is_static():
-    """Kernel worlds: every pair class, under the JAX kernel's size guard
-    (at most 64 entities, weighted pair count x substeps <= 2048)."""
+    """Kernel worlds: every pair class and joints with a static fixed
+    rotation, under the JAX kernel's size guard (at most 64 entities,
+    weighted pair count + 2 a joint constraint, x substeps <= 2048); a
+    fixed rotation inferred per env takes the plain path."""
     env = vmt_torch.make_env("transport", num_envs=2, device="cpu")
     assert env.world._use_kernel and physics_cuda.step_supported(env.world)
-    for cfg in NO_JOINTS:
+    for cfg in CONFIGS:
         world, _ = build_world(CONFIGS[cfg], 2, device="cpu")
-        assert physics_cuda.step_supported(world), cfg
-        assert world._use_kernel, cfg
+        on_kernel = cfg != "joints_fixed_rotation"
+        assert physics_cuda.step_supported(world) is on_kernel, cfg
+        assert world._use_kernel is on_kernel, cfg
     # Four boxes: 6 box-box pairs of weight 16, so 21 substeps pass the
     # guard (2016) and 22 do not (2112).
     boxes = [dict(name=f"b{i}", shape=("box", 0.2, 0.1, False))
@@ -82,6 +92,17 @@ def test_step_supported_is_static():
     for substeps, supported in ((21, True), (22, False)):
         world, _ = build_world(
             dict(world=dict(substeps=substeps), agents=boxes), 2, device="cpu"
+        )
+        assert world._use_kernel is supported, substeps
+    # 16 dist-0 joints between non-colliding spheres cost 32: 64 substeps
+    # pass the guard (2048) and 65 do not (2080).
+    spheres = [dict(name=f"s{i}", shape=("sphere", 0.05), collide=False)
+               for i in range(32)]
+    pins = [dict(a=f"s{2 * i}", b=f"s{2 * i + 1}") for i in range(16)]
+    for substeps, supported in ((64, True), (65, False)):
+        world, _ = build_world(
+            dict(world=dict(substeps=substeps), agents=spheres, joints=pins),
+            2, device="cpu",
         )
         assert world._use_kernel is supported, substeps
     world, _ = build_world(MANY_ENTITIES, 2, device="cpu")

@@ -11,12 +11,13 @@ import torch
 from vectorizedmultiagentsimulator_tpu_torch.core import (
     Agent,
     Box,
+    Joint,
     Landmark,
     Line,
     Sphere,
     World,
 )
-from vectorizedmultiagentsimulator_tpu_torch.ops import road_geometry
+from vectorizedmultiagentsimulator_tpu_torch.ops import physics_cuda, road_geometry
 from vectorizedmultiagentsimulator_tpu_torch.utils import STATE_FIELDS
 
 
@@ -25,6 +26,38 @@ from vectorizedmultiagentsimulator_tpu_torch.utils import STATE_FIELDS
 MANY_ENTITIES = dict(
     agents=[dict(name=f"a{i}", shape=("sphere", 0.01), collide=False)
             for i in range(65)],
+)
+
+
+# A joint world whose fixed rotations are static, so it steps through the
+# kernel: a sphere pinned to a box's end by a dist-0 constraint that does
+# not rotate and keeps the rotation gap 0.3 (explicit fixed_rotation_a and
+# _b), and two heavy spheres pinned by a dist-0 constraint that does not
+# rotate and has no fixed rotation (0 on the kernel).  physics_configs.py's
+# joints_fixed_rotation infers its rotation per env and takes the plain
+# path.
+JOINTS_STATIC_ROTATION = dict(
+    world=dict(substeps=5, dt=0.1),
+    agents=[
+        dict(name="a0", shape=("sphere", 0.05)),
+        dict(name="a1", shape=("box", 0.3, 0.2, False), rotatable=True,
+             mass=4.0),
+        dict(name="a2", shape=("sphere", 0.1), mass=5.0),
+        dict(name="a3", shape=("sphere", 0.1), mass=5.0),
+    ],
+    landmarks=[
+        dict(name="l0", shape=("sphere", 0.1)),
+    ],
+    joints=[
+        dict(a="a0", b="a1", anchor_a=(0, 0), anchor_b=(1, 0), dist=0.0,
+             rotate_a=False, rotate_b=False, fixed_rotation_a=0.3,
+             fixed_rotation_b=0.3),
+        dict(a="a2", b="a3", dist=0.0, rotate_a=False, rotate_b=False),
+    ],
+    spread=0.5,
+    # The fixed-rotation torque grows as exp|rotation gap|: rotations near
+    # the constraint keep a step comparable pointwise.
+    rot_spread=0.3,
 )
 
 
@@ -40,9 +73,7 @@ def make_shape(spec):
 
 def build_world(cfg, batch, *, device, seed=0):
     """A finalized port ``World`` from a ``tests/physics_configs.py`` spec
-    (no joints); returns ``(world, {name: entity})``."""
-    if cfg.get("joints"):
-        raise ValueError("joint configs need core/joints.py, not ported yet")
+    (joints too); returns ``(world, {name: entity})``."""
     wkw = dict(cfg.get("world", {}))
     wkw.update(cfg.get("world_bounds", {}))
     world = World(batch, device, **wkw)
@@ -54,15 +85,29 @@ def build_world(cfg, batch, *, device, seed=0):
             e = cls(name=name, shape=make_shape(spec.pop("shape")), **spec)
             (world.add_agent if cls is Agent else world.add_landmark)(e)
             entities[name] = e
+    for j in cfg.get("joints", []):
+        world.add_joint(Joint(
+            entities[j["a"]], entities[j["b"]],
+            anchor_a=tuple(j.get("anchor_a", (0, 0))),
+            anchor_b=tuple(j.get("anchor_b", (0, 0))),
+            dist=j.get("dist", 0.0),
+            rotate_a=j.get("rotate_a", True),
+            rotate_b=j.get("rotate_b", True),
+            collidable=j.get("collidable", False),
+            width=j.get("width", 0.0),
+            fixed_rotation_a=j.get("fixed_rotation_a"),
+            fixed_rotation_b=j.get("fixed_rotation_b"),
+        ))
     world.finalize(seed=seed)
     return world, entities
 
 
-def random_step_inputs(world, spread, seed):
+def random_step_inputs(world, spread, seed, rot_spread=math.pi):
     """Physics-step inputs ``(pos, vel, rot, ang_vel, force, torque,
     dyn_g)`` for ``world``, drawn from ``seed`` on the world's device:
     positions uniform in ``[-spread, spread]`` (so many pairs overlap),
-    small random velocities and actions."""
+    rotations in ``[-rot_spread, rot_spread]``, small random velocities
+    and actions."""
     g = torch.Generator(device=world.device).manual_seed(seed)
     B, N, A = world.batch_dim, world._n_entities, len(world.agents)
     D = len(world._dyn_gravity_names)
@@ -73,12 +118,159 @@ def random_step_inputs(world, spread, seed):
     return (
         u(B, N, 2, lo=-spread, hi=spread),
         u(B, N, 2, lo=-0.5, hi=0.5),
-        u(B, N, 1, lo=-math.pi, hi=math.pi),
+        u(B, N, 1, lo=-rot_spread, hi=rot_spread),
         u(B, N, 1, lo=-0.5, hi=0.5),
         u(B, A, 2),
         u(B, A, 1, lo=-0.2, hi=0.2),
         u(B, D, 2, lo=-0.1, hi=0.1),
     )
+
+
+# The physics kernel against its plain version: every output within
+# PHYS_ATOL + PHYS_RTOL |plain|.  A stiff joint world (joint_force 900 over
+# 10-15 substeps amplifies a reassociation about 2x a substep) that exceeds
+# it from inputs far from rest is held instead, env by env, to
+# STIFF_FACTOR times that env's float32 sensitivity: the largest
+# |plain32 - plain64| over its outputs, of the plain version from the
+# inputs and from STIFF_NUDGES copies of them nudged by up to an ulp.  At
+# most STIFF_ENV_SHARE of the envs may exceed that (an env at a force's
+# cut-off, dist < 1e-6 or a contact's edge, takes the branch that the
+# nudges do not; a wrong kernel fails in almost every env), and every
+# output is held, over all envs, to STIFF_FACTOR x max |plain32 - plain64|
+# + PHYS_ATOL.
+PHYS_ATOL = PHYS_RTOL = 1e-4
+STIFF_FACTOR = 4.0
+STIFF_NUDGES = 8
+STIFF_ENV_SHARE = 1e-3
+
+
+def step_plain64(world, inputs):
+    """The plain version (``physics_cuda.step_plain``) in float64 from the
+    float32 ``inputs``: the world's float tables are widened for the
+    call."""
+    tables = world._t
+    world._t = {k: v.double() if v.is_floating_point() else v
+                for k, v in tables.items()}
+    try:
+        return physics_cuda.step_plain(world, *(x.double() for x in inputs))
+    finally:
+        world._t = tables
+
+
+def nudged(inputs, seed):
+    """``inputs`` with each element moved by -1, 0 or +1 ulp (drawn from
+    ``seed``)."""
+    g = torch.Generator(device=inputs[0].device).manual_seed(seed)
+    return [x + x.abs() * torch.randint(-1, 2, x.shape, generator=g,
+                                        device=x.device) * 2.0 ** -23
+            for x in inputs]
+
+
+def _env_max(tensors):
+    """[B]: each env's largest element over ``tensors`` (each [B, ...])."""
+    return torch.stack([t.reshape(t.shape[0], -1).amax(1)
+                        for t in tensors]).amax(0)
+
+
+def physics_diff(world, inputs, got, stiff=False):
+    """``got`` (a kernel's ``(pos, vel, rot, ang_vel)``) against the plain
+    version on ``inputs``: a dict of ``max_abs_err`` (max |got - plain32|),
+    ``bad`` (outputs beyond PHYS_ATOL + PHYS_RTOL |plain32|) and ``ok``.
+    With ``stiff``, a result with ``bad`` outputs also carries
+    ``plain_f64_err`` (max |plain32 - plain64|), the ``bound`` STIFF_FACTOR
+    x that + PHYS_ATOL, ``bad_envs`` (envs with an output beyond
+    STIFF_FACTOR x the env's sensitivity + PHYS_ATOL + PHYS_RTOL |plain32|),
+    ``allowed_envs`` (STIFF_ENV_SHARE of the envs) and ``env_ratio`` (the
+    largest ratio of an env's excess over the strict tolerance to its
+    sensitivity), and is ``ok`` when ``max_abs_err`` is within ``bound``
+    and ``bad_envs`` within ``allowed_envs``."""
+    with torch.no_grad():
+        ref = physics_cuda.step_plain(world, *inputs)
+        err, bad, finite = 0.0, 0, True
+        excess = []
+        for g, r in zip(got, ref):
+            d = (g - r).abs()
+            err = max(err, float(d.max()))
+            finite = finite and bool(torch.isfinite(g).all())
+            # NaN counts as out of tolerance.
+            over = d - (PHYS_ATOL + PHYS_RTOL * r.abs())
+            excess.append(torch.where(torch.isnan(over), math.inf, over))
+            bad += int((~(d <= PHYS_ATOL + PHYS_RTOL * r.abs())).sum())
+        out = {"max_abs_err": err, "bad": bad, "ok": bad == 0}
+        if stiff and bad:
+            ref64 = step_plain64(world, inputs)
+            diff64 = [(r.double() - r64).abs() for r, r64 in zip(ref, ref64)]
+            f64 = max(float(d.max()) for d in diff64)
+            sens = _env_max(diff64)
+            for k in range(STIFF_NUDGES):
+                again = physics_cuda.step_plain(world, *nudged(inputs, k))
+                sens = torch.maximum(sens, _env_max(
+                    [(a.double() - r64).abs() for a, r64 in zip(again, ref64)]))
+            env_excess = _env_max(excess).double()
+            bad_envs = int((~(env_excess <= STIFF_FACTOR * sens)).sum())
+            over = env_excess > 0
+            ratio = (float((env_excess[over] / sens[over]).max())
+                     if bool(over.any()) else 0.0)
+            out.update(plain_f64_err=f64, bound=STIFF_FACTOR * f64 + PHYS_ATOL,
+                       bad_envs=bad_envs,
+                       allowed_envs=int(STIFF_ENV_SHARE * len(sens)),
+                       env_ratio=ratio)
+            out["ok"] = (finite and err <= out["bound"]
+                         and bad_envs <= out["allowed_envs"])
+    return out
+
+
+# jittered_inputs' spread: each constraint stretched by about 1e-2, where
+# a step stays well conditioned (smaller, some anchors near the joint
+# force's dist < 1e-6 cut-off flip its direction; larger, contacts start).
+JITTER = 3e-2
+
+
+def jittered_inputs(inputs, seed, jitter=JITTER):
+    """Physics-step ``inputs`` with every entity's position and rotation
+    moved by up to ``jitter`` (uniform, drawn from ``seed``): from a reset
+    state, where the joint observers pose every joint at rest (all joint
+    forces 0), this stretches every constraint."""
+    pos, vel, rot, *rest = inputs
+    g = torch.Generator(device=pos.device).manual_seed(seed)
+
+    def u(x):
+        return x + jitter * (2 * torch.rand(x.shape, generator=g,
+                                            device=x.device) - 1)
+
+    return (u(pos), vel, u(rot), *rest)
+
+
+def posed_step_inputs(world, entities, cfg, seed):
+    """Physics-step inputs of a ``physics_configs``-style world as the
+    golden generator (``tools/gen_golden.py``) poses it: each configured
+    entity written through ``set_pos``/``set_rot`` in the config's order
+    (so the joint observers pose the joint landmarks between their anchors)
+    at a jittered grid of pitch ``spread``, rotations in ``[-rot_spread,
+    rot_spread]``, velocities in [-0.3, 0.3], angular velocities in
+    [-0.5, 0.5]; random actions.  Drawn from ``seed`` on the world's device;
+    the world's state is left at the pose."""
+    g = torch.Generator(device=world.device).manual_seed(seed)
+    B, A, dev = world.batch_dim, len(world.agents), world.device
+    spread = cfg["spread"]
+    rot_spread = cfg.get("rot_spread", math.pi)
+
+    def u(*shape, s=1.0):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * s
+
+    names = [e["name"] for e in cfg.get("agents", [])] + [
+        e["name"] for e in cfg.get("landmarks", [])]
+    for i, n in enumerate(names):
+        e = entities[n]
+        cell = torch.tensor([(i % 3 - 1) * spread, (i // 3 - 1) * spread],
+                            device=dev)
+        e.set_pos(u(B, 2, s=spread) + cell)
+        e.set_rot(u(B, 1, s=rot_spread))
+        e.state.vel = u(B, 2, s=0.3)
+        e.state.ang_vel = u(B, 1, s=0.5)
+    s = world.state
+    return (s.pos, s.vel, s.rot, s.ang_vel, u(B, A, 2), u(B, A, 1, s=0.2),
+            s.pos.new_zeros((B, len(world._dyn_gravity_names), 2)))
 
 
 def jax_state_arrays(jax_state):

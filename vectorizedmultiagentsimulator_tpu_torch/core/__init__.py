@@ -6,6 +6,7 @@ from vectorizedmultiagentsimulator_tpu_torch.core.entities import (
     Entity,
     Landmark,
 )
+from vectorizedmultiagentsimulator_tpu_torch.core.joints import Joint, JointConstraint
 from vectorizedmultiagentsimulator_tpu_torch.core.world import World
 
 __all__ = [
@@ -18,5 +19,7 @@ __all__ = [
     "Agent",
     "Landmark",
     "Action",
+    "Joint",
+    "JointConstraint",
     "World",
 ]

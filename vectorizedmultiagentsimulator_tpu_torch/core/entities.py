@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from vectorizedmultiagentsimulator_tpu_torch.core.shapes import Shape, Sphere
-from vectorizedmultiagentsimulator_tpu_torch.utils import Color
+from vectorizedmultiagentsimulator_tpu_torch.utils import Color, Observable
 
 if typing.TYPE_CHECKING:
     from vectorizedmultiagentsimulator_tpu_torch.core.world import World
@@ -202,8 +202,9 @@ class Action:
         return self._tensors["u_noise"]
 
 
-class Entity:
-    """World object view (reference core.py:538-786)."""
+class Entity(Observable):
+    """World object view (reference core.py:538-786).  Joints subscribe to
+    an entity's pose writes (``set_pos`` and the other setters)."""
 
     def __init__(
         self,
@@ -224,6 +225,7 @@ class Entity:
         gravity=None,
         collision_filter: Callable[["Entity"], bool] = lambda _: True,
     ):
+        Observable.__init__(self)
         if shape is None:
             shape = Sphere()
         self._name = name
@@ -429,15 +431,19 @@ class Entity:
     # ------------------------------------------------------------------ #
     def set_pos(self, pos, batch_index=None):
         self._world._masked_entity_write("pos", self.index, pos, batch_index)
+        self.notify_observers()
 
     def set_vel(self, vel, batch_index=None):
         self._world._masked_entity_write("vel", self.index, vel, batch_index)
+        self.notify_observers()
 
     def set_rot(self, rot, batch_index=None):
         self._world._masked_entity_write("rot", self.index, rot, batch_index)
+        self.notify_observers()
 
     def set_ang_vel(self, ang_vel, batch_index=None):
         self._world._masked_entity_write("ang_vel", self.index, ang_vel, batch_index)
+        self.notify_observers()
 
 
 class Landmark(Entity):

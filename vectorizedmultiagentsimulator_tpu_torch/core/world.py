@@ -7,7 +7,9 @@ per-pair forces are summed per entity through a 0/1 incidence matrix; the
 integration is one vectorized update.  ``step`` runs the hand-written CUDA
 kernel (``ops/physics_cuda.py``) for worlds it supports, and
 ``_step_core`` — the plain PyTorch version and the kernel's reference —
-for the rest.  ``cast_rays`` (the LIDAR) runs the ray-cast kernel
+for the rest.  Joints (``core/joints.py``) become a static constraint
+table whose forces come first in every substep, before the contact
+classes.  ``cast_rays`` (the LIDAR) runs the ray-cast kernel
 (``ops/raycast_cuda.py``) on CUDA tensors and its plain version on CPU
 tensors.
 """
@@ -23,6 +25,10 @@ from vectorizedmultiagentsimulator_tpu_torch.core.entities import (
     Agent,
     Entity,
     Landmark,
+)
+from vectorizedmultiagentsimulator_tpu_torch.core.joints import (
+    Joint,
+    JointConstraint,
 )
 from vectorizedmultiagentsimulator_tpu_torch.core.state import WorldState
 from vectorizedmultiagentsimulator_tpu_torch.ops import geometry as geo
@@ -72,6 +78,7 @@ class World:
         self._device = resolve_device(device)
         self._agents: List[Agent] = []
         self._landmarks: List[Landmark] = []
+        self._joints: Dict[frozenset, JointConstraint] = {}
         self._x_semidim = x_semidim
         self._y_semidim = y_semidim
         self._dim_p = 2
@@ -114,11 +121,15 @@ class World:
         landmark._world = self
         self._landmarks.append(landmark)
 
-    def add_joint(self, joint):
-        raise NotImplementedError(
-            "Joints are not ported yet: ROADMAP.md Queue 1 item 2"
-            " (core/joints.py) and Queue 2 item Q2-1b (the kernel's joints)."
-        )
+    def add_joint(self, joint: Joint):
+        assert self._substeps > 1, "For joints, world substeps needs to be more than 1"
+        if joint.landmark is not None:
+            self.add_landmark(joint.landmark)
+        # A later constraint on the same pair replaces an earlier one.
+        for constraint in joint.joint_constraints:
+            self._joints[
+                frozenset({constraint.entity_a.name, constraint.entity_b.name})
+            ] = constraint
 
     # ------------------------------------------------------------------ #
     # Properties (API parity, core.py:1187-1232)
@@ -174,6 +185,10 @@ class World:
     @property
     def substeps(self):
         return self._substeps
+
+    @property
+    def joints(self):
+        return self._joints.values()
 
     @property
     def is_finalized(self):
@@ -259,6 +274,7 @@ class World:
         )
 
         self._build_pair_tables()
+        self._build_joint_tables()
         self._build_incidence()
         self._build_device_tables()
 
@@ -301,9 +317,16 @@ class World:
         once instead of per substep)."""
         ents = self.entities
         pairs: Dict[str, list] = {c: [] for c in PAIR_CLASSES}
+        joint_pairs = []
         for a, ea in enumerate(ents):
             for b in range(a + 1, len(ents)):
                 eb = ents[b]
+                constraint = self._joints.get(frozenset({ea.name, eb.name}))
+                if constraint is not None:
+                    joint_pairs.append(constraint)
+                    # A dist-0 constraint replaces the pair's contact.
+                    if constraint.dist == 0:
+                        continue
                 if not self._static_collides(ea, eb):
                     continue
                 sa, sb = ea.shape, eb.shape
@@ -331,6 +354,7 @@ class World:
             c: np.array(p, dtype=np.int32).reshape(-1, 2)
             for c, p in pairs.items()
         }
+        self._ordered_constraints = joint_pairs
 
     def collides(self, a: Entity, b: Entity) -> bool:
         """Public static collidability query (reference core.py:2788-2803
@@ -347,10 +371,44 @@ class World:
             return False
         return True
 
+    def _build_joint_tables(self):
+        """Per constraint, in pair order: entity indices, anchor offsets,
+        rest distance, rotate flag and static fixed rotation (0 where it is
+        None or inferred per env)."""
+        cons = self._ordered_constraints
+        J = len(cons)
+        self._joint_ia = np.zeros((J,), dtype=np.int32)
+        self._joint_ib = np.zeros((J,), dtype=np.int32)
+        self._joint_delta_a = np.zeros((J, 2), dtype=np.float32)
+        self._joint_delta_b = np.zeros((J, 2), dtype=np.float32)
+        self._joint_dist = np.zeros((J,), dtype=np.float32)
+        self._joint_rotate = np.zeros((J,), dtype=bool)
+        self._joint_fixed_rot = np.zeros((J,), dtype=np.float32)
+        index_map = {e.name: i for i, e in enumerate(self.entities)}
+        for i, c in enumerate(cons):
+            self._joint_ia[i] = index_map[c.entity_a.name]
+            self._joint_ib[i] = index_map[c.entity_b.name]
+            self._joint_delta_a[i] = c.entity_a.shape.get_delta_from_anchor(
+                c.anchor_a
+            )
+            self._joint_delta_b[i] = c.entity_b.shape.get_delta_from_anchor(
+                c.anchor_b
+            )
+            self._joint_dist[i] = c.dist
+            self._joint_rotate[i] = c.rotate
+            self._joint_fixed_rot[i] = float(c._fixed_rotation or 0.0)
+            # Joint.notify writes this one's fixed rotation per env
+            # (joints.py:139-144): route it through extras.
+            if c.inferred_rotation:
+                c._extras_key = f"joint_fixed_rotation.{i}"
+
     def _build_incidence(self):
         """[K, N] 0/1 matrices that sum the concatenated per-pair
-        force/torque contributions into per-entity totals."""
+        force/torque contributions into per-entity totals: the joint rows
+        first, then each contact class."""
         order: List[int] = []
+        if len(self._ordered_constraints):
+            order += list(self._joint_ia) + list(self._joint_ib)
         for cls in PAIR_CLASSES:
             p = self._pairs[cls]
             if len(p):
@@ -380,9 +438,13 @@ class World:
                 "lin_friction", "ang_friction", "gravity_vec", "max_speed",
                 "v_range", "max_f", "f_range", "max_t", "t_range",
                 "agent_movable", "agent_rotatable", "silent", "radius",
-                "length", "width", "hollow",
+                "length", "width", "hollow", "joint_delta_a",
+                "joint_delta_b", "joint_dist", "joint_rotate",
+                "joint_fixed_rot",
             )
         }
+        self._t["joint_ia"] = t(self._joint_ia, torch.long)
+        self._t["joint_ib"] = t(self._joint_ib, torch.long)
         self._t_pairs = {
             c: t(p, torch.long) for c, p in self._pairs.items() if len(p)
         }
@@ -599,7 +661,7 @@ class World:
                     ang_vel, t["ang_friction"], moment_e
                 )
 
-            pair_f, pair_t = self._environment_forces(pos, rot)
+            pair_f, pair_t = self._environment_forces(pos, rot, extras)
             if pair_f is not None:
                 forces = forces + pair_f
                 torques = torques + pair_t
@@ -652,13 +714,17 @@ class World:
     # ------------------------------------------------------------------ #
     # Pairwise environment forces
     # ------------------------------------------------------------------ #
-    def _environment_forces(self, pos: Tensor, rot: Tensor):
-        """All collision pair forces, concatenated and summed per entity
-        through the static incidence matrices."""
+    def _environment_forces(self, pos: Tensor, rot: Tensor, extras):
+        """All joint-constraint and collision pair forces, concatenated and
+        summed per entity through the static incidence matrices."""
         if self._incidence_f is None:
             return None, None
         f_parts: List[Tensor] = []
         t_parts: List[Tensor] = []
+        if len(self._ordered_constraints):
+            fa, ta, fb, tb = self._joint_forces(pos, rot, extras)
+            f_parts += [fa, fb]
+            t_parts += [ta, tb]
         fns = {
             "ss": self._sphere_sphere,
             "ls": self._sphere_line,
@@ -689,25 +755,100 @@ class World:
         return forces, torques
 
     def _constraint_forces(
-        self, pos_a: Tensor, pos_b: Tensor, dist_min
+        self,
+        pos_a: Tensor,
+        pos_b: Tensor,
+        dist_min,
+        force_multiplier: Optional[float] = None,
+        attractive: bool = False,
     ) -> Tuple[Tensor, Tensor]:
-        """Soft (differentiable) repulsive contact force (core.py:2805-2839):
-        ``softplus((dist_min - dist) / k) * k`` along the contact normal,
-        zero outside contact and at coincident points."""
+        """Soft (differentiable) contact force (core.py:2805-2839):
+        ``softplus(sign (dist_min - dist) / k) * k`` along the contact
+        normal, times ``force_multiplier`` (the collision force unless
+        given).  Repulsive (sign +1) it is zero outside contact, attractive
+        (sign -1, joints) inside the rest distance; both are zero at
+        coincident points."""
+        if force_multiplier is None:
+            force_multiplier = self._collision_force
+        sign = -1 if attractive else 1
         delta_pos = pos_a - pos_b
         dist = TorchUtils.safe_norm(delta_pos, dim=-1)
         k = self._contact_margin
-        x = (dist_min - dist) / k
+        x = (dist_min - dist) * sign / k
         penetration = torch.logaddexp(x, x.new_zeros(())) * k
         force = (
-            self._collision_force
+            sign
+            * force_multiplier
             * delta_pos
             / torch.where(dist > 0, dist, torch.full_like(dist, 1e-8))[..., None]
             * penetration[..., None]
         )
-        zero = (dist < 1e-6) | (dist > dist_min)
+        far = (dist < dist_min) if attractive else (dist > dist_min)
+        zero = (dist < 1e-6) | far
         force = torch.where(zero[..., None], torch.zeros_like(force), force)
         return force, -force
+
+    def _constraint_torques(
+        self, rot_a: Tensor, rot_b: Tensor, force_multiplier: float
+    ) -> Tuple[Tensor, Tensor]:
+        """Soft fixed-rotation constraint torque (core.py:2841-2858)."""
+        delta_rot = rot_a - rot_b
+        abs_delta_rot = TorchUtils.safe_norm(delta_rot, dim=-1, keepdim=True)
+        penetration = torch.exp(abs_delta_rot) - 1
+        torque = force_multiplier * torch.sign(delta_rot) * penetration
+        torque = torch.where(
+            abs_delta_rot < 1e-9, torch.zeros_like(torque), torque
+        )
+        return -torque, torque
+
+    def _joint_forces(self, pos, rot, extras):
+        """Vectorized joint constraint solve (core.py:2201-2292): the
+        attractive and the repulsive soft force between the two anchor
+        points, their lever-arm torques, and the fixed-rotation torque of
+        constraints that do not rotate."""
+        t = self._t
+        ia, ib = t["joint_ia"], t["joint_ib"]
+        rot_a, rot_b = rot[:, ia], rot[:, ib]  # [B, J, 1]
+        pos_a, pos_b = pos[:, ia], pos[:, ib]
+        delta_a = TorchUtils.rotate_vector(
+            t["joint_delta_a"][None].expand(pos_a.shape), rot_a
+        )
+        delta_b = TorchUtils.rotate_vector(
+            t["joint_delta_b"][None].expand(pos_b.shape), rot_b
+        )
+        pos_joint_a = pos_a + delta_a
+        pos_joint_b = pos_b + delta_b
+        dist = t["joint_dist"][None]  # [1, J]
+
+        fa_attr, fb_attr = self._constraint_forces(
+            pos_joint_a, pos_joint_b, dist, self._joint_force, attractive=True
+        )
+        fa_rep, fb_rep = self._constraint_forces(
+            pos_joint_a, pos_joint_b, dist, self._joint_force
+        )
+        force_a = fa_attr + fa_rep
+        force_b = fb_attr + fb_rep
+
+        torque_a_rot = TorchUtils.compute_torque(force_a, pos_joint_a - pos_a)
+        torque_b_rot = TorchUtils.compute_torque(force_b, pos_joint_b - pos_b)
+
+        # Fixed rotation [B|1, J, 1]: the static table, with the per-env
+        # values that Joint.notify wrote into extras.
+        B = pos.shape[0]
+        joint_rot = t["joint_fixed_rot"][None, :, None]
+        for i, c in enumerate(self._ordered_constraints):
+            if c._extras_key in extras:
+                joint_rot = torch.select_scatter(
+                    joint_rot.expand(B, -1, 1),
+                    extras[c._extras_key].reshape(B, 1), 1, i,
+                )
+        t_fixed_a, t_fixed_b = self._constraint_torques(
+            rot_a, rot_b + joint_rot, self._torque_constraint_force
+        )
+        rotate = t["joint_rotate"][None, :, None]
+        torque_a = torch.where(rotate, torque_a_rot, torque_a_rot + t_fixed_a)
+        torque_b = torch.where(rotate, torque_b_rot, torque_b_rot + t_fixed_b)
+        return force_a, torque_a, force_b, torque_b
 
     def _sphere_sphere(self, pos, rot, ia, ib, pn):
         """core.py:2294-2339"""

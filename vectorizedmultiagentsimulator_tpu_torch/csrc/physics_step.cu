@@ -10,20 +10,28 @@
 //
 // What it computes, per env: action force/torque of movable/rotatable
 // agents; static gravity x mass and per-env dyn_gravity; linear and
-// angular friction; the soft contacts of all six pair classes:
-// sphere-sphere (ss), box-sphere (bs), line-sphere (ls), line-line (ll),
-// box-line (bl) and box-box (bb), boxes solid or hollow; drag on substep
-// 0; semi-implicit Euler with the max_speed, v_range and x/y semidim
-// clamps, over every substep.  Worlds with joints or per-env mass step
-// through the plain version (physics_cuda.step_supported decides at
-// finalize).
+// angular friction; the joint constraints (the attractive and the
+// repulsive soft force between the two anchor points, their lever-arm
+// torques, and the fixed-rotation torque of constraints that do not
+// rotate, physics_pallas.py:366-402); the soft contacts of all six pair
+// classes: sphere-sphere (ss), box-sphere (bs), line-sphere (ls),
+// line-line (ll), box-line (bl) and box-box (bb), boxes solid or hollow;
+// drag on substep 0; semi-implicit Euler with the max_speed, v_range and
+// x/y semidim clamps, over every substep.  Worlds with per-env mass or a
+// per-env joint fixed rotation step through the plain version
+// (physics_cuda.step_supported decides at finalize).
 //
 // What bounds it on the H100.  For transport (N=6 entities, A=4 agents)
 // an env moves 144 B of state in (pos, vel, rot, ang_vel), 144 B out and
 // 48 B of action force/torque: about 340 B, so 30k envs move about 10 MB a
 // step, a few microseconds at 3.35 TB/s.  Memory is not the limit: launch
 // overhead and each thread's arithmetic over n_pairs x substeps are (a
-// box-box pair is 32 segment-segment tests, a box-line pair 4).  One
+// box-box pair is 32 segment-segment tests, a box-line pair 4).  The
+// joint worlds are the heaviest: joint_passage (23 entities, 10 substeps,
+// 54 pairs and 3 constraints) is about 7.5e4 operations a thread, 0.03 ms
+// of the card's fp32 rate at 30k envs against 0.01 ms of bytes; a joint
+// constraint (two sincos pairs, two soft forces, lever-arm torques) costs
+// about as much as three sphere-sphere pairs.  One
 // thread per env makes the whole step one launch with no inter-thread
 // communication, and keeps every intermediate (per-entity force sums, the
 // contact geometry) in registers and thread-local memory, never in device
@@ -41,9 +49,21 @@
 // math.  The contact tests (dist > dist_min) then see the plain version's
 // bits, so a one-ulp difference never switches a contact on in one and
 // off in the other.  What differs is the order of the per-entity force
-// sums (the plain version sums pair contributions with a matmul).
+// sums (the plain version sums pair contributions with a matmul).  A
+// joint world is stiff (joint_force 900 over 10-15 substeps), so that
+// difference grows about 2x a substep there.
+//
+// Compiled as host C++ (no __CUDACC__), the same per-thread body runs as a
+// loop over the envs, which is how the CPU tests run this source.
 
+#include <cmath>
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#define DEV __device__ __forceinline__
+#else
+#define DEV inline
+using std::isfinite;
+#endif
 
 #define VMT_MAX_ENTITIES 64
 #define VMT_THREADS 128
@@ -76,14 +96,20 @@ struct Tables {
   // bs (box, sphere), ls (line, sphere), ll (line a, line b), bl (box,
   // line), bb (box a, box b).
   const int* pairs;
+  // [J, 3] per joint constraint: entity a, entity b, rotate (0/1).
+  const int* joint_idx;
+  // [J, 6] per joint constraint: anchor offset of a (x, y) and of b
+  // (x, y) in the entity's frame, rest distance, static fixed rotation.
+  const float* joint_geom;
 };
 
 // Sizes and scalars, mirrored as _Dims in ops/physics_cuda.py.
 struct Dims {
-  int B, N, A, n_landmarks, D, substeps;
+  int B, N, A, n_landmarks, D, substeps, J;
   // Class c's pairs are the rows [pair_start[c], pair_start[c + 1]).
   int pair_start[N_CLASSES + 1];
-  float sub_dt, contact_margin, collision_force;
+  float sub_dt, contact_margin, collision_force, joint_force,
+      torque_constraint_force;
   int has_x_semidim, has_y_semidim;
   float x_semidim, y_semidim;
 };
@@ -91,31 +117,39 @@ struct Dims {
 namespace {
 
 // TorchUtils.safe_norm of (x, y): 0 at the zero vector.
-__device__ __forceinline__ float safe_norm2(float x, float y) {
+DEV float safe_norm2(float x, float y) {
   float sq = x * x + y * y;
   return sq > 0.0f ? sqrtf(sq) : 0.0f;
 }
 
-// World._constraint_forces: soft repulsive contact force on entity a along
-// (dx, dy) = pos_a - pos_b; entity b gets its negation.
-__device__ __forceinline__ void soft_contact(float dx, float dy,
-                                             float dist_min, const Dims& d,
-                                             float* fx, float* fy) {
+// World._constraint_forces: soft force on entity a along (dx, dy) =
+// pos_a - pos_b, times `mult`; entity b gets its negation.  Repulsive, it
+// is zero beyond dist_min; attractive (joints), inside it.
+DEV void constraint_force(float dx, float dy, float dist_min, float mult,
+                          bool attractive, const Dims& d, float* fx,
+                          float* fy) {
+  const float sign = attractive ? -1.0f : 1.0f;
   float dist = safe_norm2(dx, dy);
-  float x = (dist_min - dist) / d.contact_margin;
+  float x = (dist_min - dist) * sign / d.contact_margin;
   float pen = (fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)))) * d.contact_margin;
   float den = dist > 0.0f ? dist : 1e-8f;
-  bool zero = (dist < 1e-6f) || (dist > dist_min);
-  *fx = zero ? 0.0f : d.collision_force * dx / den * pen;
-  *fy = zero ? 0.0f : d.collision_force * dy / den * pen;
+  bool far = attractive ? (dist < dist_min) : (dist > dist_min);
+  bool zero = (dist < 1e-6f) || far;
+  const float sm = sign * mult;
+  *fx = zero ? 0.0f : sm * dx / den * pen;
+  *fy = zero ? 0.0f : sm * dy / den * pen;
+}
+
+// The repulsive contact force of the six pair classes.
+DEV void soft_contact(float dx, float dy, float dist_min, const Dims& d,
+                      float* fx, float* fy) {
+  constraint_force(dx, dy, dist_min, d.collision_force, false, d, fx, fy);
 }
 
 // geometry.closest_point_line: closest point on a segment given by its
 // centre, rotation and length to the query point (qx, qy).
-__device__ __forceinline__ void closest_on_line(float lx, float ly, float c,
-                                                float s, float len, float qx,
-                                                float qy, float* ox,
-                                                float* oy) {
+DEV void closest_on_line(float lx, float ly, float c, float s, float len,
+                         float qx, float qy, float* ox, float* oy) {
   float dot = (lx - qx) * c + (ly - qy) * s;
   float sign = (dot > 0.0f) ? 1.0f : ((dot < 0.0f) ? -1.0f : 0.0f);  // jnp.sign(0) == 0
   float dist = fminf(fabsf(dot), len / 2.0f);
@@ -129,22 +163,19 @@ struct Seg {
   float x, y, c, s, len;
 };
 
-__device__ __forceinline__ Seg make_seg(float x, float y, float rot,
-                                        float len) {
+DEV Seg make_seg(float x, float y, float rot, float len) {
   return Seg{x, y, cosf(rot), sinf(rot), len};
 }
 
-__device__ __forceinline__ void closest_on_seg(const Seg& g, float qx,
-                                               float qy, float* ox,
-                                               float* oy) {
+DEV void closest_on_seg(const Seg& g, float qx, float qy, float* ox,
+                        float* oy) {
   closest_on_line(g.x, g.y, g.c, g.s, g.len, qx, qy, ox, oy);
 }
 
 // geometry.all_lines_box: the 4 sides in the reference order (+length,
 // -length, +width, -width).
-__device__ __forceinline__ void box_sides(float bx, float by, float rot,
-                                          float width, float length,
-                                          Seg* sides) {
+DEV void box_sides(float bx, float by, float rot, float width, float length,
+                   Seg* sides) {
   float hc = cosf(rot), hs = sinf(rot);
   float prot = rot + 1.57079632679489662f;
   float pc = cosf(prot), ps = sinf(prot);
@@ -156,10 +187,9 @@ __device__ __forceinline__ void box_sides(float bx, float by, float rot,
 }
 
 // geometry.closest_point_box: first minimum over the 4 sides.
-__device__ __forceinline__ void closest_on_box(float bx, float by, float rot,
-                                               float width, float length,
-                                               float qx, float qy, float* ox,
-                                               float* oy) {
+DEV void closest_on_box(float bx, float by, float rot, float width,
+                        float length, float qx, float qy, float* ox,
+                        float* oy) {
   Seg sides[4];
   box_sides(bx, by, rot, width, length, sides);
   float best_x = 0.0f, best_y = 0.0f, best_d = 0.0f;
@@ -181,9 +211,8 @@ __device__ __forceinline__ void closest_on_box(float bx, float by, float rot,
 // geometry.closest_points_line_line: the closest point pair (on a, on b)
 // of two segments: their intersection if they cross, else the first
 // minimum of the 4 endpoint projections.
-__device__ __forceinline__ void closest_seg_seg(const Seg& a, const Seg& b,
-                                                float* pax, float* pay,
-                                                float* pbx, float* pby) {
+DEV void closest_seg_seg(const Seg& a, const Seg& b, float* pax, float* pay,
+                         float* pbx, float* pby) {
   // geometry.line_extrema
   const float ha = a.len / 2.0f, hb = b.len / 2.0f;
   const float hax = ha * a.c, hay = ha * a.s, hbx = hb * b.c, hby = hb * b.s;
@@ -240,9 +269,8 @@ __device__ __forceinline__ void closest_seg_seg(const Seg& a, const Seg& b,
 
 // geometry.closest_line_box: the closest (box point, segment point) pair,
 // first minimum over the box's 4 sides.
-__device__ __forceinline__ void closest_box_seg(const Seg* sides, const Seg& g,
-                                                float* bx, float* by,
-                                                float* gx, float* gy) {
+DEV void closest_box_seg(const Seg* sides, const Seg& g, float* bx, float* by,
+                         float* gx, float* gy) {
   float best_d = 0.0f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -261,9 +289,8 @@ __device__ __forceinline__ void closest_box_seg(const Seg* sides, const Seg& g,
 
 // geometry.closest_box_box: each side of a against box b, then each side
 // of b against box a (8 candidates, reference order), first minimum.
-__device__ __forceinline__ void closest_box_box(const Seg* sa, const Seg* sb,
-                                                float* pax, float* pay,
-                                                float* pbx, float* pby) {
+DEV void closest_box_box(const Seg* sa, const Seg* sb, float* pax, float* pay,
+                         float* pbx, float* pby) {
   float best_d = 0.0f;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
@@ -289,11 +316,9 @@ __device__ __forceinline__ void closest_box_box(const Seg* sa, const Seg* sb,
 // outside-point->surface ray, and returns the extra contact distance; a
 // degenerate ray gives surface + surface.  A hollow box keeps the surface
 // point and no extra distance.
-__device__ __forceinline__ void inner_point(bool hollow, float outx,
-                                            float outy, float surfx,
-                                            float surfy, float cx, float cy,
-                                            float* ix, float* iy,
-                                            float* extra) {
+DEV void inner_point(bool hollow, float outx, float outy, float surfx,
+                     float surfy, float cx, float cy, float* ix, float* iy,
+                     float* extra) {
   if (hollow) {
     *ix = surfx;
     *iy = surfy;
@@ -316,17 +341,19 @@ __device__ __forceinline__ void inner_point(bool hollow, float outx,
   *extra = fabsf(x_mag);
 }
 
-__global__ void __launch_bounds__(VMT_THREADS)
-physics_step_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
-                    const float* __restrict__ rot,
-                    const float* __restrict__ ang_vel,
-                    const float* __restrict__ force_a,
-                    const float* __restrict__ torque_a,
-                    const float* __restrict__ dyn_g, float* __restrict__ out_pos,
-                    float* __restrict__ out_vel, float* __restrict__ out_rot,
-                    float* __restrict__ out_ang_vel, Tables t, Dims d) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= d.B) return;
+// One env's whole step: what one thread of the kernel computes.
+DEV void physics_step_one(int b, const float* __restrict__ pos,
+                          const float* __restrict__ vel,
+                          const float* __restrict__ rot,
+                          const float* __restrict__ ang_vel,
+                          const float* __restrict__ force_a,
+                          const float* __restrict__ torque_a,
+                          const float* __restrict__ dyn_g,
+                          float* __restrict__ out_pos,
+                          float* __restrict__ out_vel,
+                          float* __restrict__ out_rot,
+                          float* __restrict__ out_ang_vel, const Tables& t,
+                          const Dims& d) {
   const int N = d.N;
 
   float px[VMT_MAX_ENTITIES], py[VMT_MAX_ENTITIES];
@@ -393,6 +420,46 @@ physics_step_kernel(const float* __restrict__ pos, const float* __restrict__ vel
       cfx[i] = 0.0f;
       cfy[i] = 0.0f;
       ctq[i] = 0.0f;
+    }
+
+    // ---- joint constraints (core.py:2201-2292), before the contacts as
+    // in the plain version's incidence rows ---- //
+    for (int j = 0; j < d.J; ++j) {
+      const int ia = t.joint_idx[3 * j], ib = t.joint_idx[3 * j + 1];
+      const bool rotate = t.joint_idx[3 * j + 2] != 0;
+      const float* g = t.joint_geom + 6 * j;
+      // TorchUtils.rotate_vector of each anchor offset, added to the centre.
+      const float ca = cosf(th[ia]), sa = sinf(th[ia]);
+      const float cb = cosf(th[ib]), sb = sinf(th[ib]);
+      const float pjax = px[ia] + (g[0] * ca - g[1] * sa);
+      const float pjay = py[ia] + (g[0] * sa + g[1] * ca);
+      const float pjbx = px[ib] + (g[2] * cb - g[3] * sb);
+      const float pjby = py[ib] + (g[2] * sb + g[3] * cb);
+      float fx1, fy1, fx2, fy2;  // attractive, repulsive; on a
+      constraint_force(pjax - pjbx, pjay - pjby, g[4], d.joint_force, true, d,
+                       &fx1, &fy1);
+      constraint_force(pjax - pjbx, pjay - pjby, g[4], d.joint_force, false,
+                       d, &fx2, &fy2);
+      const float fx = fx1 + fx2, fy = fy1 + fy2;
+      add_force(ia, fx, fy);
+      add_force(ib, -fx, -fy);
+      // Lever-arm torques r x f, r = anchor point - centre.
+      const float rax = pjax - px[ia], ray = pjay - py[ia];
+      const float rbx = pjbx - px[ib], rby = pjby - py[ib];
+      float ta = rax * fy - ray * fx;
+      float tb = rbx * (-fy) - rby * (-fx);
+      if (!rotate) {
+        // World._constraint_torques with rot_b + fixed rotation.
+        const float dr = th[ia] - (th[ib] + g[5]);
+        const float adr = safe_norm2(dr, 0.0f);
+        const float sgn = (dr > 0.0f) ? 1.0f : ((dr < 0.0f) ? -1.0f : 0.0f);
+        float tq = d.torque_constraint_force * sgn * (expf(adr) - 1.0f);
+        if (adr < 1e-9f) tq = 0.0f;
+        ta = ta + -tq;
+        tb = tb + tq;
+      }
+      if (t.rotatable[ia]) ctq[ia] += ta;
+      if (t.rotatable[ib]) ctq[ib] += tb;
     }
 
     // ---- sphere-sphere contacts (core.py:2294-2339) ---- //
@@ -565,6 +632,23 @@ physics_step_kernel(const float* __restrict__ pos, const float* __restrict__ vel
   }
 }
 
+#ifdef __CUDACC__
+__global__ void __launch_bounds__(VMT_THREADS)
+physics_step_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
+                    const float* __restrict__ rot,
+                    const float* __restrict__ ang_vel,
+                    const float* __restrict__ force_a,
+                    const float* __restrict__ torque_a,
+                    const float* __restrict__ dyn_g, float* __restrict__ out_pos,
+                    float* __restrict__ out_vel, float* __restrict__ out_rot,
+                    float* __restrict__ out_ang_vel, Tables t, Dims d) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= d.B) return;
+  physics_step_one(b, pos, vel, rot, ang_vel, force_a, torque_a, dyn_g,
+                   out_pos, out_vel, out_rot, out_ang_vel, t, d);
+}
+#endif
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  Every tensor pointer is a
@@ -572,16 +656,26 @@ physics_step_kernel(const float* __restrict__ pos, const float* __restrict__ vel
 // are host pointers to the world's Tables and Dims, built once at
 // finalize.  The launch goes on `stream` (PyTorch's current stream).
 // Returns cudaGetLastError() after the launch, 0 on success; it does not
-// synchronise.
+// synchronise.  Built as host C++, the pointers are host pointers, the
+// envs run in a loop and `stream` is not read.
 extern "C" int vmt_physics_step(
     const float* pos, const float* vel, const float* rot, const float* ang_vel,
     const float* force_a, const float* torque_a, const float* dyn_g,
     float* out_pos, float* out_vel, float* out_rot, float* out_ang_vel,
     const Tables* t, const Dims* d, void* stream) {
+#ifdef __CUDACC__
   if (d->N > VMT_MAX_ENTITIES || d->B <= 0) return (int)cudaErrorInvalidValue;
   const int blocks = (d->B + VMT_THREADS - 1) / VMT_THREADS;
   physics_step_kernel<<<blocks, VMT_THREADS, 0, (cudaStream_t)stream>>>(
       pos, vel, rot, ang_vel, force_a, torque_a, dyn_g, out_pos, out_vel,
       out_rot, out_ang_vel, *t, *d);
   return (int)cudaGetLastError();
+#else
+  (void)stream;
+  if (d->N > VMT_MAX_ENTITIES || d->B <= 0) return 1;
+  for (int b = 0; b < d->B; ++b)
+    physics_step_one(b, pos, vel, rot, ang_vel, force_a, torque_a, dyn_g,
+                     out_pos, out_vel, out_rot, out_ang_vel, *t, *d);
+  return 0;
+#endif
 }

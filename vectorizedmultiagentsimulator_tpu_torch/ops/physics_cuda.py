@@ -4,8 +4,8 @@ Replaces the JAX package's Pallas kernel
 (``ops/physics_pallas.py::_make_kernel``).  This module holds:
 
 * ``step_supported(world)``: whether a world's step runs the kernel,
-  decided from its static tables (mirrors ``physics_pallas.step_supported``
-  and adds the joints the kernel does not cover yet);
+  decided from its static tables (mirrors ``physics_pallas.step_supported``,
+  joints included);
 * ``step_plain``: the plain PyTorch version, ``World._step_core``;
 * ``fused_step``: the wrapper.  On CUDA tensors it launches the kernel or
   raises; on CPU tensors it runs ``step_plain``.  It is a
@@ -42,13 +42,27 @@ PAIR_WEIGHTS = {"ss": 1, "bs": 2, "ls": 1, "ll": 3, "bl": 8, "bb": 16}
 
 def step_supported(world) -> bool:
     """Whether ``world`` steps through the kernel: at most 64 entities, no
-    per-env mass, no joints (not ported), and the JAX kernel's size guard
-    (weighted pair count x substeps <= 2048)."""
+    per-env mass, no per-env joint fixed rotation, and the JAX kernel's
+    size guard (weighted pair count plus 2 a joint constraint, x substeps
+    <= 2048).
+
+    The JAX kernel refuses a per-env fixed rotation once the first reset
+    has written it; here the decision is made at finalize, so a constraint
+    whose ``Joint.notify`` will write one (``inferred_rotation``: a
+    ``dist > 0`` joint end with ``rotate`` False and no fixed rotation
+    given) is refused from the start.  A dist-0 constraint with ``rotate``
+    False and no fixed rotation keeps 0 on the kernel, as in JAX; any
+    other constraint's fixed rotation is static once the world is
+    finalized (``JointConstraint.fixed_rotation`` raises)."""
     if world._n_entities > MAX_ENTITIES:
         return False
     if any(world.has_extra(f"{e.name}.dyn_mass") for e in world.entities):
         return False
+    cons = world._ordered_constraints
+    if any(c.inferred_rotation for c in cons):
+        return False
     cost = sum(w * len(world._pairs[c]) for c, w in PAIR_WEIGHTS.items())
+    cost += 2 * len(cons)
     return cost * world._substeps <= 2048
 
 
@@ -91,7 +105,8 @@ _TABLE_FIELDS = (
 class _Tables(ctypes.Structure):
     """``Tables`` of csrc/physics_step.cu, field for field."""
 
-    _fields_ = [(n, _P) for n in _TABLE_FIELDS + ("pairs",)]
+    _fields_ = [(n, _P) for n in _TABLE_FIELDS + ("pairs", "joint_idx",
+                                                   "joint_geom")]
 
 
 class _Dims(ctypes.Structure):
@@ -99,8 +114,10 @@ class _Dims(ctypes.Structure):
 
     _fields_ = [
         ("B", _I), ("N", _I), ("A", _I), ("n_landmarks", _I), ("D", _I),
-        ("substeps", _I), ("pair_start", _I * (len(KERNEL_CLASSES) + 1)),
+        ("substeps", _I), ("J", _I),
+        ("pair_start", _I * (len(KERNEL_CLASSES) + 1)),
         ("sub_dt", _F), ("contact_margin", _F), ("collision_force", _F),
+        ("joint_force", _F), ("torque_constraint_force", _F),
         ("has_x_semidim", _I), ("has_y_semidim", _I), ("x_semidim", _F),
         ("y_semidim", _F),
     ]
@@ -131,9 +148,12 @@ def _library():
 
 def kernel_tables(world) -> KernelTables:
     """The kernel's static arguments for ``world``: the world's float32
-    device tables, int32 copies of the flags, and every class's pairs packed
+    device tables, int32 copies of the flags, every class's pairs packed
     into one int32 ``[P, 2]`` table in ``KERNEL_CLASSES`` order, with the
-    row where each class starts."""
+    row where each class starts, and the joint constraints in the plain
+    version's order as an int32 ``[J, 3]`` table (ia, ib, rotate) and a
+    float32 ``[J, 6]`` one (anchor offsets of a and b, rest distance,
+    static fixed rotation)."""
     t = world._t
     names = [e.name for e in world.entities]
     dyn_row = np.full((len(names),), -1, dtype=np.int32)
@@ -150,19 +170,30 @@ def kernel_tables(world) -> KernelTables:
         for c in KERNEL_CLASSES
     ]
     start = np.cumsum([0] + [len(p) for p in per_class])
+    joint_idx = np.stack(
+        [world._joint_ia, world._joint_ib, world._joint_rotate.astype(np.int32)],
+        axis=1,
+    )
+    joint_geom = np.concatenate(
+        [world._joint_delta_a, world._joint_delta_b,
+         world._joint_dist[:, None], world._joint_fixed_rot[:, None]],
+        axis=1,
+    )
     tensors = (
         i32(world._movable), i32(world._rotatable), t["mass"], t["moment"],
         t["drag_coef"], t["max_speed"], t["v_range"], t["gravity_vec"],
         i32(dyn_row), t["radius"], t["length"], t["width"],
         i32(world._hollow), t["lin_friction"], t["ang_friction"],
-        i32(np.concatenate(per_class)),
+        i32(np.concatenate(per_class)), i32(joint_idx),
+        torch.as_tensor(joint_geom, device=world.device),
     )
     tables = _Tables(*(x.data_ptr() for x in tensors))
     dims = _Dims(
         world.batch_dim, world._n_entities, len(world.agents),
         world._n_landmarks, len(world._dyn_gravity_names), world._substeps,
-        (_I * len(start))(*start.tolist()), world._sub_dt,
-        world._contact_margin, world._collision_force,
+        len(joint_idx), (_I * len(start))(*start.tolist()), world._sub_dt,
+        world._contact_margin, world._collision_force, world._joint_force,
+        world._torque_constraint_force,
         int(world._x_semidim is not None), int(world._y_semidim is not None),
         float(world._x_semidim or 0.0), float(world._y_semidim or 0.0),
     )

@@ -10,7 +10,14 @@ from __future__ import annotations
 import importlib
 
 _REGISTRY = {
+    "asym_joint": (
+        "vectorizedmultiagentsimulator_tpu_torch.scenarios.debug.asym_joint"
+    ),
     "balance": "vectorizedmultiagentsimulator_tpu_torch.scenarios.balance",
+    "ball_trajectory": (
+        "vectorizedmultiagentsimulator_tpu_torch.scenarios.ball_trajectory"
+    ),
+    "buzz_wire": "vectorizedmultiagentsimulator_tpu_torch.scenarios.buzz_wire",
     "dispersion": "vectorizedmultiagentsimulator_tpu_torch.scenarios.dispersion",
     "flocking": "vectorizedmultiagentsimulator_tpu_torch.scenarios.flocking",
     "football": "vectorizedmultiagentsimulator_tpu_torch.scenarios.football",
@@ -18,11 +25,20 @@ _REGISTRY = {
         "vectorizedmultiagentsimulator_tpu_torch.scenarios.debug"
         ".kinematic_bicycle"
     ),
+    "joint_passage": (
+        "vectorizedmultiagentsimulator_tpu_torch.scenarios.joint_passage"
+    ),
+    "joint_passage_size": (
+        "vectorizedmultiagentsimulator_tpu_torch.scenarios.joint_passage_size"
+    ),
     "navigation": "vectorizedmultiagentsimulator_tpu_torch.scenarios.navigation",
     "road_traffic": (
         "vectorizedmultiagentsimulator_tpu_torch.scenarios.road_traffic"
     ),
     "transport": "vectorizedmultiagentsimulator_tpu_torch.scenarios.transport",
+    "waterfall": (
+        "vectorizedmultiagentsimulator_tpu_torch.scenarios.debug.waterfall"
+    ),
     "simple_speaker_listener": (
         "vectorizedmultiagentsimulator_tpu_torch.scenarios.mpe"
         ".simple_speaker_listener"

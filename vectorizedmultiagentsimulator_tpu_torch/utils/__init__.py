@@ -62,6 +62,21 @@ class Color(Enum):
     YELLOW = (0.87, 0.87, 0)
 
 
+class Observable:
+    """Tiny observer registry: joints subscribe to their entities' pose
+    writes (reference utils.py:85-103)."""
+
+    def __init__(self):
+        self._observers = []
+
+    def subscribe(self, observer):
+        self._observers.append(observer)
+
+    def notify_observers(self, *args, **kwargs):
+        for obs in self._observers:
+            obs.notify(self, *args, **kwargs)
+
+
 class TorchUtils:
     """PyTorch counterpart of ``JaxUtils``."""
 
