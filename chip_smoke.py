@@ -32,17 +32,23 @@ Phases, one line each:
      the tests/golden/raycast.npz scene tiled to 30k envs with random poses,
      and axis-aligned rays against unrotated boxes; each line counts the
      rays that hit and the rays where one side hits and the other misses.
-     Then each kernel's time beside its plain version's (physics at each
-     main path, the ray cast at navigation@30k).  PPO update: one minibatch
+     Each main path's random inputs again with the physics kernel forced to
+     one lane an env (the lane group is chosen at finalize).  Then each
+     kernel's time beside its plain version's (physics at each main path,
+     with the device time at each lane group 1, 2, 4 and 8; the ray cast at
+     navigation@30k).  PPO update: one minibatch
      at transport@4096's shapes in Gaussian, flat-categorical and
      multidiscrete mode, with a 1-wide action, with norm_n != mb, with a
-     ragged last tile, with hidden sizes of 96 and 128 (smaller tiles), at
+     ragged last tile, with hidden sizes of 96, 100 (padded to 112), 128,
+     256 and 300 (smaller tiles; at 256 the gradient sums in device memory,
+     at 300 the trunk weights read from there too), at
      the shapes of every training run of phases 3 to 5 from random data,
      and on the packed rollout of a real rollout of each training path of
      phase 3 (transport@4096 over 64 steps, navigation@4096 over 16); max
      |kernel - plain| of every gradient and sum, two launches bit-identical,
      then the time of a launch (CUDA events and the profiler's device
-     time), its bound and the plain version's time.  Football's planner:
+     time), its bound and the plain version's time, at transport@4096 and
+     at the same shapes with hidden 256.  Football's planner:
      random inputs at 30k envs for 1, 3 and 5 teammates, with and without
      value noise, and the real inputs of football 5v5@30k after 10 steps;
      for each, max |kernel - plain| over the rows that pick the plain
@@ -85,7 +91,8 @@ Phases, one line each:
      train_step calls under the same sync check: 16 PPO-update launches and
      64 physics launches an iteration, finite loss and reward, parameters
      changed, the spawner's give-ups printed; the same for navigation (ray
-     casts in the rollout) with 16-step rollouts;
+     casts in the rollout) with 16-step rollouts, and for transport@4096
+     with a hidden-256 trunk (16-step rollouts, one iteration);
   4. env-steps/s of each 100-step rollout through the kernels and with
      the kernels forced off (the world on its plain physics, the ray cast
      on cast_rays_plain, the planner on best_positions_plain, the road
@@ -111,8 +118,10 @@ package beside it, the script fails before printing any result.
 compares this checkout's package with another checkout's (for example the
 parent commit unpacked with `git archive` into a gitignored directory) on
 one card: PAIRS (default 10) alternating pairs of processes, each running
-two 100-step rollouts of transport and simple_spread at 30k envs and 200
-back-to-back physics wrapper calls; it prints each run and a JSON summary.
+two 100-step rollouts of joint_passage and buzz_wire at 30k envs with the
+physics wrapper's time per call and its kernel's device time, and two
+training iterations of transport@16384 (update and iteration ms); it
+prints each run and a JSON summary.
 """
 import contextlib
 import json
@@ -142,9 +151,11 @@ RTOL = 1e-4
 # kernels against the kernel's inlined libm calls differ; a hit/miss flip
 # would move a ray by up to max_range and is counted separately.
 CAST_TOL = 1e-5
-# The scenarios the physics kernel already ran before the ray cast was
-# ported, compared across commits by --ab.
-AB_SCENARIOS = ("transport", "simple_spread")
+# The stepping paths that --ab compares across commits: the two joint
+# paths, whose physics launch is the largest share of their device time;
+# and the training cell it times (update and iteration ms).
+AB_SCENARIOS = ("joint_passage", "buzz_wire")
+AB_TRAIN = ("transport", 16384)
 # (scenario, envs, agents, obs width, ray-cast launches a step, planner
 # launches a step, road-kernel launches a step: agent geometry, pair,
 # neighbour).  road_traffic runs at 10k envs: the plain version's [B, A, 5,
@@ -243,13 +254,26 @@ PPO_BUILDS = {
     "1-wide action": (15, 1, 0, 64),
     "navigation": (22, 2, 0, 64),
     "transport hidden 96": (15, 2, 0, 96),
+    "transport hidden 100": (15, 2, 0, 100),
     "transport hidden 128": (15, 2, 0, 128),
     "transport multidiscrete hidden 128": (15, 2, 3, 128),
+    "transport hidden 256": (15, 2, 0, 256),
+    "transport hidden 300": (15, 2, 0, 300),
 }
-# (scenario, envs, rollout steps, iterations, ray casts a step) of the
-# training runs of phase 3; a step observes once and once more in its
-# masked reset, so it casts each LIDAR twice.
-TRAIN_PATHS = [("transport", 4096, 64, 3, 0), ("navigation", 4096, 16, 2, 8)]
+# The shapes phase 2 holds beside the default one: wider trunks take
+# smaller tiles (64, 32, 16 samples), a hidden size that is not a multiple
+# of 16 is padded, from about hidden 160 the gradient sums live in device
+# memory, and from about 260 the trunk weights are read from there too.
+PPO_WIDE = ("transport hidden 96", "transport hidden 100",
+            "transport hidden 128", "transport multidiscrete hidden 128",
+            "transport hidden 256", "transport hidden 300")
+# (scenario, envs, rollout steps, iterations, ray casts a step, hidden) of
+# the training runs of phase 3; a step observes once and once more in its
+# masked reset, so it casts each LIDAR twice.  The last trains a hidden-256
+# trunk through the kernel.
+TRAIN_PATHS = [("transport", 4096, 64, 3, 0, 64),
+               ("navigation", 4096, 16, 2, 8, 64),
+               ("transport", 4096, 16, 1, 0, 256)]
 TRAIN_CELLS = [("simple_spread", 4096), ("transport", 4096),
                ("transport", 16384)]
 # The specs phase 2 held to the plain version; a training run of a later
@@ -337,8 +361,10 @@ def kernel_vs_plain(world, inputs, label, stiff=False):
                  f" {report['bad_envs']} of {world.batch_dim} (at most"
                  f" {report['allowed_envs']}), largest excess/sensitivity"
                  f" {report['env_ratio']:.3g})")
+    lanes = world._kernel_tables.structs[1].lanes
     log(f"[2] physics {label}: B={world.batch_dim} N={world._n_entities}"
-        f" {pairs}{f' joints={joints}' if joints else ''} max|kernel-plain|"
+        f" {pairs}{f' joints={joints}' if joints else ''} lanes={lanes}"
+        f" max|kernel-plain|"
         f" pos/vel/rot/ang_vel = {report['max_abs_err']:.3e}{extra}")
     if not report["ok"]:
         raise AssertionError(f"{label}: kernel disagrees with plain: {report}")
@@ -515,7 +541,9 @@ def main_path(name, envs, agents, obs_dim, casts_per_step, plans_per_step,
             f" {road} road-kernel launches in {N_STEPS} steps (expected"
             f" {expected})"
         )
-    log(f"[3] {label}: {N_STEPS} steps, no host sync, obs"
+    log(f"[3] {label}: physics lanes an env"
+        f" {env.world._kernel_tables.structs[1].lanes}; {N_STEPS} steps, no"
+        f" host sync, obs"
         f" {agents}x[{envs}, {obs_dim}] finite, physics launches {steps},"
         f" ray-cast launches {casts}, planner launches {plans}, road"
         f" launches (agent geometry, pair, neighbour) {road}; dones in the"
@@ -722,13 +750,17 @@ def profile_steps(env, actions, on):
 
 
 def rate_worker(root):
-    """``--rate ROOT``: for each scenario of AB_SCENARIOS, two N_STEPS-step
-    rollouts' env-steps/s and the physics wrapper's time per call (200
-    back-to-back calls from the reset state, CUDA events) of the port
-    package found at ROOT; one JSON line."""
+    """``--rate ROOT``: with the port package found at ROOT, for each
+    scenario of AB_SCENARIOS at 30k envs two N_STEPS-step rollouts'
+    env-steps/s and the physics wrapper's time per call and its kernel's
+    device time (back-to-back calls from the reset state); then for
+    AB_TRAIN at the PPOConfig defaults, after one warm-up iteration, two
+    iterations' update ms and whole-iteration ms (host clock, each ended by
+    a synchronize); one JSON line of {metric: value}."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
     import vectorizedmultiagentsimulator_tpu_torch as vmt
+    from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
     from vectorizedmultiagentsimulator_tpu_torch.ops import physics_cuda
 
     assert vmt.__file__.startswith(os.path.abspath(root)), vmt.__file__
@@ -739,21 +771,41 @@ def rate_worker(root):
         rates = [timed_rollout(env, actions) for _ in range(2)]
         w = env.world
         inputs = state_inputs(w)
+        step = lambda: physics_cuda.fused_step(w, *inputs)
         with torch.no_grad():
             for _ in range(10):
-                physics_cuda.fused_step(w, *inputs)
-            call_ms = cuda_time_ms(
-                lambda: physics_cuda.fused_step(w, *inputs), 200)
-        out[name] = {"rates": rates, "call_ms": call_ms}
-        del env, actions, w, inputs
+                step()
+            call_ms = cuda_time_ms(step, 200)
+            dev_ms = device_ms(step, 20, "physics_step_kernel")
+        out[f"{name} env-steps/s"] = sum(rates) / 2
+        out[f"{name} physics ms/call"] = call_ms
+        out[f"{name} physics device ms"] = dev_ms
+        del env, actions, w, inputs, step
+    name, num_envs = AB_TRAIN
+    _, _, tr = torch_ppo.init_training(name, num_envs, seed=0)
+    tr.train_step()
+    torch.cuda.synchronize()
+    update_s = iteration_s = 0.0
+    for _ in range(2):
+        t0 = time.perf_counter()
+        packed, _ = tr.collect()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tr.update(packed)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        update_s += t2 - t1
+        iteration_s += t2 - t0
+    out[f"train {name}@{num_envs} update ms"] = update_s / 2 * 1e3
+    out[f"train {name}@{num_envs} iteration ms"] = iteration_s / 2 * 1e3
     print(json.dumps(out), flush=True)
 
 
 def ab(parent_root, pairs):
-    """``--ab PARENT_ROOT [PAIRS]``: the rollout rates and wrapper times of
-    this checkout's package against the one at PARENT_ROOT, one process
-    each, in ``pairs`` alternating pairs (parent, change, change, parent,
-    ...) on this card."""
+    """``--ab PARENT_ROOT [PAIRS]``: ``rate_worker``'s numbers for this
+    checkout's package against the one at PARENT_ROOT, one process each,
+    in ``pairs`` alternating pairs (parent, change, change, parent, ...)
+    on this card."""
     import statistics
 
     runs = {"parent": [], "change": []}
@@ -762,30 +814,24 @@ def ab(parent_root, pairs):
             root = parent_root if who == "parent" else ROOT
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--rate", root],
-                capture_output=True, text=True, timeout=300, check=True,
+                capture_output=True, text=True, timeout=600, check=True,
             )
             got = json.loads(proc.stdout.strip().splitlines()[-1])
             runs[who].append(got)
-            log(f"[ab] pair {k} {who}: " + ", ".join(
-                f"{n} env-steps/s {r['rates'][0]:.6g} {r['rates'][1]:.6g},"
-                f" wrapper {r['call_ms']:.4f} ms/call" for n, r in got.items()))
+            log(f"[ab] pair {k} {who}: "
+                + ", ".join(f"{m} {v:.6g}" for m, v in got.items()))
     summary = {}
-    for name in AB_SCENARIOS:
+    for metric in runs["change"][0]:
         row = {}
         for who, got in runs.items():
-            rates = [statistics.mean(g[name]["rates"]) for g in got]
-            calls = [g[name]["call_ms"] for g in got]
-            row[who] = {"rate_median": statistics.median(rates),
-                        "rate_min": min(rates), "rate_max": max(rates),
-                        "call_ms_median": statistics.median(calls),
-                        "call_ms_min": min(calls), "call_ms_max": max(calls)}
-        row["pairs_change_faster"] = sum(
-            statistics.mean(c[name]["rates"]) > statistics.mean(p[name]["rates"])
+            vals = [g[metric] for g in got]
+            row[who] = {"median": statistics.median(vals), "min": min(vals),
+                        "max": max(vals)}
+        higher = metric.endswith("/s")
+        row["pairs_change_better"] = sum(
+            (c[metric] > p[metric]) if higher else (c[metric] < p[metric])
             for c, p in zip(runs["change"], runs["parent"]))
-        row["pairs_change_call_faster"] = sum(
-            c[name]["call_ms"] < p[name]["call_ms"]
-            for c, p in zip(runs["change"], runs["parent"]))
-        summary[name] = row
+        summary[metric] = row
     print(json.dumps({"ab_pairs": pairs, "summary": summary}), flush=True)
 
 
@@ -799,11 +845,12 @@ def ppo_spec(shape, lb=4096, mb=262144, norm_n=0):
         vf_coef=0.5, ent_coef=0.01, n_logits=nl, norm_n=norm_n)
 
 
-def train_spec(name, num_envs, rollout_steps=64):
+def train_spec(name, num_envs, rollout_steps=64, hidden=64):
     """The spec of init_training(name, num_envs) at the PPOConfig defaults
-    with ``rollout_steps``-step rollouts: 4 minibatches an epoch."""
+    with ``rollout_steps``-step rollouts and a ``hidden``-wide trunk: 4
+    minibatches an epoch."""
     n_agents = {path[0]: path[2] for path in MAIN_PATHS}[name]
-    return ppo_spec(PPO_BUILDS[name],
+    return ppo_spec(PPO_BUILDS[name][:3] + (hidden,),
                     mb=rollout_steps * n_agents * num_envs // 4)
 
 
@@ -897,10 +944,10 @@ def device_ms(fn, iters, key):
                and key in e.name) / 1e3 / iters
 
 
-def train_path(name, num_envs, rollout_steps, iters, casts_per_step):
-    """``iters`` training iterations of init_training(name, num_envs) on the
-    card with no host sync; returns the (PPO, physics, ray-cast) launches
-    counted in that run."""
+def train_path(name, num_envs, rollout_steps, iters, casts_per_step, hidden):
+    """``iters`` training iterations of init_training(name, num_envs) with a
+    ``hidden``-wide trunk on the card with no host sync; returns the (PPO,
+    physics, ray-cast) launches counted in that run."""
     import torch
     from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
     from vectorizedmultiagentsimulator_tpu_torch.ops import (
@@ -909,11 +956,12 @@ def train_path(name, num_envs, rollout_steps, iters, casts_per_step):
         raycast_cuda,
     )
 
-    cfg = torch_ppo.PPOConfig(rollout_steps=rollout_steps)
+    cfg = torch_ppo.PPOConfig(rollout_steps=rollout_steps, hidden=hidden)
     env, train_step, trainer = torch_ppo.init_training(name, num_envs, seed=0,
                                                        cfg=cfg)
     assert trainer.fused and env.world._use_kernel, f"{name}: not on the kernels"
-    assert trainer.spec == train_spec(name, num_envs, rollout_steps), trainer.spec
+    assert trainer.spec == train_spec(name, num_envs, rollout_steps,
+                                      hidden), trainer.spec
     assert trainer.spec in PPO_COMPARED, f"{trainer.spec} was not compared"
     before = [p.detach().clone() for p in trainer.model.ordered_parameters()]
     give_ups_before = env.world.spawn_give_ups.clone()
@@ -945,8 +993,9 @@ def train_path(name, num_envs, rollout_steps, iters, casts_per_step):
     assert moved > 0 and all(
         bool(torch.isfinite(p).all()) for p in trainer.model.parameters())
     give_ups = int(env.world.spawn_give_ups - give_ups_before)
-    log(f"[3] train {name}@{num_envs}: {iters} iterations of {rollout_steps}"
-        f" steps x {cfg.epochs} epochs x {cfg.minibatches} minibatches of"
+    log(f"[3] train {name}@{num_envs} hidden {hidden}: {iters} iterations of"
+        f" {rollout_steps} steps x {cfg.epochs} epochs x {cfg.minibatches}"
+        f" minibatches of"
         f" {trainer.spec.mb} samples (lb {trainer.spec.lb}), no host sync;"
         f" PPO launches {counts[0]}, physics launches {counts[1]}, ray-cast"
         f" launches {counts[2]}; loss {' '.join(f'{x:+.5f}' for x in losses)};"
@@ -1060,8 +1109,46 @@ def profile_training(name, num_envs):
         f" ray-cast kernel {named['raycast']:.3f} ms")
 
 
+def ppo_layout(spec):
+    from vectorizedmultiagentsimulator_tpu_torch.ops import ppo_update_cuda
+
+    tile, global_sums, global_weights = ppo_update_cuda.layout(spec)
+    return (f"tile {tile}, sums in {'device' if global_sums else 'shared'}"
+            f" memory, trunk weights in"
+            f" {'device' if global_weights else 'shared'} memory,"
+            f" {ppo_update_cuda.blocks_per_sm(spec)} block(s) an SM")
+
+
+def ppo_times(spec, inputs, label):
+    """A launch's time (CUDA events over back-to-back calls), its device
+    time (the update and reduce kernels, profiler), the plain version's
+    time, the bound and the line of every product at the fp32 rate, all
+    printed; returns them as a dict."""
+    from vectorizedmultiagentsimulator_tpu_torch.ops import ppo_update_cuda
+
+    call = lambda: ppo_update_cuda.minibatch_update(spec, *inputs)
+    plain = lambda: ppo_update_cuda.minibatch_update_plain(spec, *inputs)
+    for _ in range(3):
+        call()
+        plain()
+    ms = cuda_time_ms(call, 20)
+    dev_ms = device_ms(call, 5, "ppo_")
+    plain_ms = cuda_time_ms(plain, 5)
+    bound_ms, by, fp32_ms = ppo_bound_ms(spec, inputs)
+    log(f"[2] ppo update at {label} (one minibatch of {spec.mb} samples,"
+        f" hidden {spec.hidden}, {ppo_layout(spec)}): kernel {ms:.4f} ms a"
+        f" launch (CUDA events), {dev_ms:.4f} ms device time (update and"
+        f" reduce kernels), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms"
+        f" ({by}; trunk products at the bf16 tensor-core rate, the rest at"
+        f" the fp32 rate), {fp32_ms:.5f} ms if every product ran at the fp32"
+        f" rate")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "fp32_rate_ms": fp32_ms}
+
+
 def ppo_phase_2(errs):
-    """Phase 2 for the PPO kernel; returns (ms, plain_ms, bound_ms, by)."""
+    """Phase 2 for the PPO kernel; returns the times of transport@4096's
+    minibatch and of the same at hidden 256 (``ppo_times``)."""
     import torch
     from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
     from vectorizedmultiagentsimulator_tpu_torch.ops import ppo_update_cuda
@@ -1079,27 +1166,27 @@ def ppo_phase_2(errs):
         ("ragged last tile", ppo_spec(PPO_BUILDS["transport"], lb=8,
                                       mb=1000), 300),
     ]
-    # A wider trunk is compiled with a smaller tile.
-    for key in ("transport hidden 96", "transport hidden 128",
-                "transport multidiscrete hidden 128"):
+    for key in PPO_WIDE:
         spec = ppo_spec(PPO_BUILDS[key])
-        cases.append((f"{key} (tile {ppo_update_cuda.tile_size(spec)})", spec,
-                      256))
+        cases.append((f"{key} ({ppo_layout(spec)})", spec, 256))
     # Every training run of the later phases, at its own shapes.
-    runs = [(name, num_envs, steps) for name, num_envs, steps, *_ in TRAIN_PATHS]
-    runs += [(name, num_envs, 64) for name, num_envs in TRAIN_CELLS]
-    for name, num_envs, steps in runs:
-        spec = train_spec(name, num_envs, steps)
+    runs = [(name, num_envs, steps, hidden)
+            for name, num_envs, steps, _, _, hidden in TRAIN_PATHS]
+    runs += [(name, num_envs, 64, 64) for name, num_envs in TRAIN_CELLS]
+    for name, num_envs, steps, hidden in runs:
+        spec = train_spec(name, num_envs, steps, hidden)
         if all(spec != case[1] for case in cases):
-            cases.append((f"{name}@{num_envs}, {steps} steps", spec,
-                          4 * spec.mb // spec.lb))
+            cases.append((f"{name}@{num_envs}, {steps} steps, hidden {hidden}",
+                          spec, 4 * spec.mb // spec.lb))
     timed = None
     for seed, (label, spec, nb_tot) in enumerate(cases):
         inputs = ppo_random_case(spec, nb_tot, 20 + seed)
         errs.append(ppo_vs_plain(spec, inputs, label))
         if timed is None:
             timed = inputs
-        if spec.hidden > 64:
+        if spec == ppo_spec(PPO_BUILDS["transport hidden 256"]):
+            wide = ppo_times(spec, inputs, f"transport@4096 hidden 256")
+        elif spec.hidden > 64:
             wide_ms = cuda_time_ms(
                 lambda: ppo_update_cuda.minibatch_update(spec, *inputs), 5)
             log(f"[2] ppo update {label}: kernel {wide_ms:.4f} ms a launch of"
@@ -1108,11 +1195,11 @@ def ppo_phase_2(errs):
         del inputs
     # The packed rollout of a real rollout of each training path of phase 3,
     # with its own parameters and statistics.
-    for name, num_envs, steps, *_ in TRAIN_PATHS:
-        spec = train_spec(name, num_envs, steps)
+    for name, num_envs, steps, _, _, hidden in TRAIN_PATHS:
+        spec = train_spec(name, num_envs, steps, hidden)
         env, _, trainer = torch_ppo.init_training(
             name, num_envs, seed=0,
-            cfg=torch_ppo.PPOConfig(rollout_steps=steps))
+            cfg=torch_ppo.PPOConfig(rollout_steps=steps, hidden=hidden))
         assert trainer.spec == spec, trainer.spec
         packed, _ = trainer.collect()
         nb_tot, nbm = trainer.n // spec.lb, spec.mb // spec.lb
@@ -1126,25 +1213,11 @@ def ppo_phase_2(errs):
                              1.0 / (adv.std(unbiased=False) + 1e-8)])
         errs.append(ppo_vs_plain(
             spec, (packed, perm, stats, trainer.model.kernel_params()),
-            f"{name}@{num_envs}, a real {steps}-step rollout"))
+            f"{name}@{num_envs} hidden {hidden}, a real {steps}-step"
+            f" rollout"))
         del env, trainer, packed
 
-    call = lambda: ppo_update_cuda.minibatch_update(transport, *timed)
-    plain = lambda: ppo_update_cuda.minibatch_update_plain(transport, *timed)
-    for _ in range(3):
-        call()
-        plain()
-    ms = cuda_time_ms(call, 20)
-    dev_ms = device_ms(call, 5, "ppo_")
-    plain_ms = cuda_time_ms(plain, 5)
-    bound_ms, by, fp32_ms = ppo_bound_ms(transport, timed)
-    log(f"[2] ppo update at transport@4096 (one minibatch of {transport.mb}"
-        f" samples): kernel {ms:.4f} ms a launch (CUDA events), {dev_ms:.4f}"
-        f" ms device time (update and reduce kernels), plain {plain_ms:.4f}"
-        f" ms, bound {bound_ms:.5f} ms ({by}; trunk products at the bf16"
-        f" tensor-core rate, the rest at the fp32 rate), {fp32_ms:.5f} ms if"
-        f" every product ran at the fp32 rate as this kernel's do")
-    return ms, plain_ms, bound_ms, by
+    return ppo_times(transport, timed, "transport@4096"), wide
 
 
 def planner_bound_ms(p, B):
@@ -1513,11 +1586,10 @@ def main():
                 if "registers" in line or "spill" in line:
                     log(f"[1] ptxas {tag}: {line.strip()}")
     for k, sp in ppo_specs.items():
-        tile = ppo_update_cuda.tile_size(sp)
-        log(f"[1] ppo_update {k}: tiles of {tile} samples,"
-            f" {ppo_update_cuda.smem_bytes(sp, tile)} bytes of dynamic shared"
-            f" memory a block, {ppo_update_cuda.flat_size(sp)} gradient"
-            f" entries and sums")
+        log(f"[1] ppo_update {k}: {ppo_layout(sp)},"
+            f" {ppo_update_cuda.smem_bytes(sp, *ppo_update_cuda.layout(sp))}"
+            f" bytes of dynamic shared memory a block,"
+            f" {ppo_update_cuda.flat_size(sp)} gradient entries and sums")
 
     phase_time(1)
 
@@ -1579,6 +1651,10 @@ def main():
         r_inputs = random_step_inputs(w, spread=PATH_SPREAD.get(name, 0.3),
                                       seed=3)
         held(kernel_vs_plain(w, r_inputs, f"{label} random", stiff=stiff))
+        # One thread an env, the first design's order of the sums.
+        with physics_cuda.lanes(w, 1):
+            held(kernel_vs_plain(w, r_inputs, f"{label} random, forced 1 lane",
+                                 stiff=stiff))
         if stiff:
             bit_identical(w, r_inputs, label)
         # The planner's operands in the last of the 10 steps.
@@ -1610,14 +1686,23 @@ def main():
                     *cast_args, f"{label} 10 steps, {agent.name}'s LIDAR"
                 ))
         with torch.no_grad():
-            kernel_ms = cuda_time_ms(
-                lambda: physics_cuda.fused_step(w, *r_inputs), 50)
+            step = lambda: physics_cuda.fused_step(w, *r_inputs)
+            kernel_ms = cuda_time_ms(step, 50)
             plain_ms = cuda_time_ms(
                 lambda: physics_cuda.step_plain(w, *r_inputs), 50)
-            times[name] = (kernel_ms, plain_ms, physics_bound_ms(w, r_inputs))
-            log(f"[2] physics step at {label}: kernel {kernel_ms:.4f} ms,"
-                f" plain {plain_ms:.4f} ms, bound {times[name][2][0]:.5f} ms"
-                f" ({times[name][2][1]})")
+            times[name] = (kernel_ms, plain_ms, physics_bound_ms(w, r_inputs),
+                           w._kernel_tables.structs[1].lanes)
+            # Device time at each lane group the kernel takes, the one
+            # chosen at finalize among them.
+            sweep = {}
+            for group in (1, 2, 4, 8):
+                with physics_cuda.lanes(w, group):
+                    sweep[group] = device_ms(step, 20, "physics_step_kernel")
+            log(f"[2] physics step at {label}: kernel {kernel_ms:.4f} ms a"
+                f" call with {times[name][3]} lanes an env, plain"
+                f" {plain_ms:.4f} ms, bound {times[name][2][0]:.5f} ms"
+                f" ({times[name][2][1]}); device ms a launch with 1/2/4/8"
+                f" lanes " + " ".join(f"{v:.4f}" for v in sweep.values()))
             if name == "navigation":
                 # One LIDAR of the path, as the main path casts it.
                 cast_ms = cuda_time_ms(
@@ -1634,7 +1719,7 @@ def main():
     # The physics row of the kernels line: transport@30k, as in the earlier
     # slices, and joint_passage@30k, the path of the joint branch, under
     # "joint_path" (every path's time is printed above).
-    kernel_ms, plain_ms, (phys_bound, phys_by) = times["transport"]
+    kernel_ms, plain_ms, (phys_bound, phys_by), _ = times["transport"]
 
     golden = np.load(os.path.join(ROOT, "tests", "golden", "raycast.npz"))
     gw, _ = build_world(dict(
@@ -1687,7 +1772,7 @@ def main():
     road_errs = {"geometry": [], "neighbor_obs": []}
     road_times = road_phase_2(road_errs)
     ppo_errs = []
-    ppo_ms, ppo_plain_ms, ppo_bound, ppo_by = ppo_phase_2(ppo_errs)
+    ppo_t, ppo_wide = ppo_phase_2(ppo_errs)
 
     phase_time(2)
 
@@ -1774,7 +1859,9 @@ def main():
             "bound_ms": phys_bound,
             "bound_by": phys_by,
             "library_ms": None,
+            "lanes": times["transport"][3],
             "joint_path": {
+                "lanes": times["joint_passage"][3],
                 "path": f"joint_passage@{PATH_ENVS['joint_passage']}",
                 "ms": times["joint_passage"][0],
                 "plain_ms": times["joint_passage"][1],
@@ -1816,10 +1903,14 @@ def main():
             "replaces": "vectorizedmultiagentsimulator_tpu/ops/ppo_update_pallas.py:291",
             "launches": launches["ppo_update"],
             "max_abs_err": max(ppo_errs),
-            "ms": ppo_ms,
-            "plain_ms": ppo_plain_ms,
-            "bound_ms": ppo_bound,
-            "bound_by": ppo_by,
+            "ms": ppo_t["ms"],
+            "plain_ms": ppo_t["plain_ms"],
+            "bound_ms": ppo_t["bound_ms"],
+            "bound_by": ppo_t["bound_by"],
+            "device_ms": ppo_t["device_ms"],
+            # The same minibatch at hidden 256 (gradient sums in device
+            # memory).
+            "hidden_256": ppo_wide,
             # No single PyTorch call computes a PPO minibatch's gradients.
             "library_ms": None,
         },

@@ -159,6 +159,28 @@ def test_kernel_matches_plain_joint_scenarios(cuda, scenario):
     _compare(w, random_step_inputs(w, 0.5, seed=16), stiff=True)
 
 
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("scenario", ["joint_passage", "football"])
+def test_kernel_matches_plain_at_every_lane_group(cuda, scenario, lanes):
+    """The physics kernel with each lane group, not only the one chosen at
+    finalize: from random inputs within 1e-4 + 1e-4|plain| (joint_passage
+    by the float64 rule where it exceeds that), two launches
+    bit-identical."""
+    kwargs = dict(n_blue_agents=5, n_red_agents=5) if scenario == "football" \
+        else {}
+    env = vmt_torch.make_env(scenario, num_envs=B, device="cuda", seed=0,
+                             **kwargs)
+    w = env.world
+    inputs = random_step_inputs(w, 1.0 if scenario == "football" else 0.5,
+                                seed=18)
+    with physics_cuda.lanes(w, lanes):
+        _compare(w, inputs, stiff=scenario == "joint_passage")
+        with torch.no_grad():
+            a = physics_cuda.fused_step(w, *inputs)
+            b = physics_cuda.fused_step(w, *inputs)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 @pytest.mark.parametrize("scenario,kwargs", [
     ("waterfall", {}), ("physics_joints_fixed_rotation", {})])
 def test_joint_worlds_on_the_plain_route(cuda, scenario, kwargs):
@@ -351,11 +373,18 @@ PPO_GRAD_TOL, PPO_SUM_RTOL, PPO_SUM_ATOL_PER_SAMPLE = 2e-3, 1e-4, 1e-6
      dict(obs_d=15, act_w=2, hidden=64, lb=256, mb=8192, n_logits=3), 64),
     ("ragged_tile_norm_n",
      dict(obs_d=6, act_w=1, hidden=16, lb=8, mb=1000, norm_n=4000), 300),
-    # Wider trunks run with tiles of 64, 32 and 16 samples.
+    # Wider trunks run with tiles of 64, 32 and 16 samples, from about
+    # hidden 160 with the gradient sums in device memory and from about 260
+    # with the weights read from there too; widths that are not a multiple
+    # of 16 are padded.
     ("hidden96", dict(obs_d=15, act_w=2, hidden=96, lb=256, mb=8192), 64),
     ("hidden128", dict(obs_d=15, act_w=2, hidden=128, lb=256, mb=8192), 64),
     ("hidden128_multidiscrete",
      dict(obs_d=15, act_w=2, hidden=128, lb=8, mb=1000, n_logits=3), 300),
+    ("hidden100", dict(obs_d=22, act_w=2, hidden=100, lb=256, mb=8192), 64),
+    ("hidden160", dict(obs_d=15, act_w=2, hidden=160, lb=256, mb=8192), 64),
+    ("hidden256", dict(obs_d=15, act_w=2, hidden=256, lb=256, mb=8192), 64),
+    ("hidden300", dict(obs_d=15, act_w=2, hidden=300, lb=256, mb=8192), 64),
 ])
 def test_ppo_kernel_matches_plain(cuda, name, fields, nb_tot):
     spec = ppo_update_cuda.PPOUpdateSpec(clip_eps=0.2, vf_coef=0.5,
@@ -424,10 +453,12 @@ def test_train_step_launch_counts_no_sync(cuda, scenario, kwargs, casts):
 
 
 def test_ppo_kernel_refuses_a_trunk_it_does_not_take(cuda):
-    """On the card a spec the kernel does not take raises, in the wrapper
-    and when a trainer is built: nothing trains through another path."""
+    """On the card a spec the kernel does not take (a trunk whose fp32
+    activation tiles alone overflow a block's shared memory) raises, in the
+    wrapper and when a trainer is built: nothing trains through another
+    path.  Hidden 256 trains through the kernel."""
     spec = ppo_update_cuda.PPOUpdateSpec(
-        obs_d=15, act_w=2, hidden=256, lb=256, mb=8192, clip_eps=0.2,
+        obs_d=15, act_w=2, hidden=1100, lb=256, mb=8192, clip_eps=0.2,
         vf_coef=0.5, ent_coef=0.01)
     packed, perm, stats, params = random_ppo_inputs(spec, 64, seed=22)
     with pytest.raises(ValueError, match="does not take"):
@@ -439,7 +470,15 @@ def test_ppo_kernel_refuses_a_trunk_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="does not take"):
         torch_ppo.init_training(
             "transport", 256, 0,
-            torch_ppo.PPOConfig(rollout_steps=8, hidden=256, fused_block=256))
+            torch_ppo.PPOConfig(rollout_steps=8, hidden=1100,
+                                fused_block=256))
+    _, step, trainer = torch_ppo.init_training(
+        "transport", 256, 0,
+        torch_ppo.PPOConfig(rollout_steps=8, hidden=256, fused_block=256))
+    before = ppo_update_cuda.LAUNCHES
+    trainer, metrics = step(trainer)
+    assert trainer.fused and ppo_update_cuda.LAUNCHES == before + 16
+    assert np.isfinite(float(metrics["loss"]))
 
 
 ROAD_MAP3 = dict(map_type="3", n_agents=10)

@@ -12,6 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+# The CPU tests run at small sizes, several test processes at once:
+# PyTorch's intra-op threads would only contend with each other.
+torch.set_num_threads(1)
+
 import vectorizedmultiagentsimulator_tpu_torch as vmt_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

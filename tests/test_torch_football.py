@@ -16,6 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+# The CPU tests run at small sizes, several test processes at once:
+# PyTorch's intra-op threads would only contend with each other.
+torch.set_num_threads(1)
+
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_helpers import (
     jax_state_arrays,

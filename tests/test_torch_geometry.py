@@ -7,6 +7,10 @@ import numpy as np
 import pytest
 import torch
 
+# The CPU tests run at small sizes, several test processes at once:
+# PyTorch's intra-op threads would only contend with each other.
+torch.set_num_threads(1)
+
 from vectorizedmultiagentsimulator_tpu_torch.ops import geometry as geo
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "geometry.npz")

@@ -17,6 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+# The CPU tests run at small sizes, several test processes at once:
+# PyTorch's intra-op threads would only contend with each other.
+torch.set_num_threads(1)
+
 sys.path.insert(0, os.path.dirname(__file__))
 from physics_configs import CONFIGS
 from torch_helpers import (
@@ -277,9 +281,12 @@ def _build_host_physics(directory, replace=None):
          "-o", lib_path, src_path],
         check=True,
     )
-    fn = ctypes.CDLL(lib_path).vmt_physics_step
+    lib = ctypes.CDLL(lib_path)
+    fn = lib.vmt_physics_step
     fn.argtypes = [ctypes.c_void_p] * 14
     fn.restype = ctypes.c_int
+    fn.smem_bytes = lib.vmt_physics_smem_bytes
+    fn.smem_bytes.argtypes = [ctypes.c_void_p]
     return fn
 
 
@@ -288,14 +295,30 @@ def host_physics(tmp_path_factory):
     return _build_host_physics(tmp_path_factory.mktemp("physics"))
 
 
-def _host_step(fn, world, inputs):
+def _host_step(fn, world, inputs, lanes=None):
+    """One step of the host build; ``lanes`` forces a lane group (None:
+    the one chosen at finalize).  Two launches must give the same bits."""
     kt = physics_cuda.kernel_tables(world)
+    if lanes is not None:
+        kt.structs[1].lanes = lanes
+    dims = kt.structs[1]
+    assert fn.smem_bytes(kt.addresses[1]) == physics_cuda.smem_bytes(
+        dims.N, dims.pair_start[-1], dims.J, dims.lanes)
     inputs = [x.contiguous() for x in inputs]
-    out = [torch.empty_like(x) for x in inputs[:4]]
-    err = fn(*(x.data_ptr() for x in inputs), *(o.data_ptr() for o in out),
-             *kt.addresses, None)
-    assert err == 0
-    return out
+    outs = []
+    for _ in range(2):
+        out = [torch.empty_like(x) for x in inputs[:4]]
+        err = fn(*(x.data_ptr() for x in inputs),
+                 *(o.data_ptr() for o in out), *kt.addresses, None)
+        assert err == 0
+        outs.append(out)
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    return outs[0]
+
+
+# Lane groups beside the one chosen at finalize: the first design's one
+# thread an env, and wider ones up to the widest the kernel takes.
+FORCED_LANES = (1, 4, 8)
 
 
 KERNEL_WORLDS = {c: CONFIGS[c] for c in CONFIGS
@@ -303,12 +326,9 @@ KERNEL_WORLDS = {c: CONFIGS[c] for c in CONFIGS
 KERNEL_WORLDS["joints_static_rotation"] = JOINTS_STATIC_ROTATION
 
 
-@pytest.mark.parametrize("name", sorted(KERNEL_WORLDS))
-def test_kernel_source_on_the_host_matches_plain(host_physics, name, B=64):
-    """The six pair classes' configs from random inputs, and the joint
-    worlds that take the kernel posed as the goldens are (the joint
-    observers place the joint landmarks): within PHYS_ATOL + PHYS_RTOL
-    |plain|."""
+def _check_kernel_world(host_physics, name, lanes=None, B=64):
+    """The world ``name`` of ``KERNEL_WORLDS`` through the host build with
+    ``lanes`` (None: the group chosen at finalize)."""
     if host_physics is None:
         pytest.skip("needs a host C++ compiler")
     cfg = KERNEL_WORLDS[name]
@@ -318,20 +338,36 @@ def test_kernel_source_on_the_host_matches_plain(host_physics, name, B=64):
         inputs = posed_step_inputs(world, ents, cfg, 21)
     else:
         inputs = random_step_inputs(world, cfg["spread"], 21)
-    got = _host_step(host_physics, world, inputs)
+    got = _host_step(host_physics, world, inputs, lanes)
     report = physics_diff(world, inputs, got)
     assert report["ok"], report
 
 
-@pytest.mark.parametrize("scenario", ["asym_joint", "ball_trajectory",
-                                      "buzz_wire", "joint_passage",
-                                      "joint_passage_size"])
-def test_kernel_source_on_the_host_matches_plain_scenarios(host_physics,
-                                                           scenario, B=16):
-    """The joint scenarios' worlds from their reset state and from it
-    jittered, every constraint stretched (strict), after 3 steps (strict)
-    and from random inputs (the stiff rule where the strict one is
-    exceeded)."""
+@pytest.mark.parametrize("name", sorted(KERNEL_WORLDS))
+def test_kernel_source_on_the_host_matches_plain(host_physics, name):
+    """The six pair classes' configs from random inputs, and the joint
+    worlds that take the kernel posed as the goldens are (the joint
+    observers place the joint landmarks): within PHYS_ATOL + PHYS_RTOL
+    |plain| (the lanes' sums add in another order than the plain
+    version's matmul, as one thread's do); 64 envs fill two blocks of
+    32."""
+    _check_kernel_world(host_physics, name)
+
+
+@pytest.mark.parametrize("lanes", FORCED_LANES)
+@pytest.mark.parametrize("name", sorted(KERNEL_WORLDS))
+def test_kernel_source_on_the_host_matches_plain_at_lane_groups(
+        host_physics, name, lanes):
+    """The same at the other lane groups the kernel takes."""
+    _check_kernel_world(host_physics, name, lanes)
+
+
+SCENARIOS_ON_THE_KERNEL = ["asym_joint", "ball_trajectory", "buzz_wire",
+                           "joint_passage", "joint_passage_size"]
+
+
+def _check_scenario(host_physics, scenario, lanes=None, B=16):
+    """``scenario``'s world through the host build with ``lanes``."""
     if host_physics is None:
         pytest.skip("needs a host C++ compiler")
     env = vmt_torch.make_env(scenario, num_envs=B, device="cpu", seed=0)
@@ -346,15 +382,33 @@ def test_kernel_source_on_the_host_matches_plain_scenarios(host_physics,
     for stage, inputs in (("reset", state_inputs()),
                           ("jittered", jittered_inputs(state_inputs(), 23)),
                           ("random", random_step_inputs(w, 0.5, 22))):
-        report = physics_diff(w, inputs, _host_step(host_physics, w, inputs),
-                              stiff=stage == "random")
+        report = physics_diff(
+            w, inputs, _host_step(host_physics, w, inputs, lanes),
+            stiff=stage == "random")
         assert report["ok"], (stage, report)
     for _ in range(3):
         env.step(env.get_random_actions())
     inputs = state_inputs()
-    report = physics_diff(w, inputs, _host_step(host_physics, w, inputs),
-                          stiff=True)
+    report = physics_diff(w, inputs, _host_step(host_physics, w, inputs,
+                                                lanes), stiff=True)
     assert report["ok"], report
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS_ON_THE_KERNEL)
+def test_kernel_source_on_the_host_matches_plain_scenarios(host_physics,
+                                                           scenario):
+    """The joint scenarios' worlds from their reset state and from it
+    jittered, every constraint stretched (strict), after 3 steps (strict)
+    and from random inputs (the stiff rule where the strict one is
+    exceeded), with the lane group chosen at finalize."""
+    _check_scenario(host_physics, scenario)
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS_ON_THE_KERNEL)
+def test_kernel_source_on_the_host_matches_plain_scenarios_one_lane(
+        host_physics, scenario):
+    """The same with one thread an env."""
+    _check_scenario(host_physics, scenario, lanes=1)
 
 
 # Faults planted in a copy of the kernel's joint branch, and the world

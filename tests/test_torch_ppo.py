@@ -12,6 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+# The CPU tests run at small sizes, several test processes at once:
+# PyTorch's intra-op threads would only contend with each other.
+torch.set_num_threads(1)
+
 sys.path.insert(0, os.path.dirname(__file__))
 
 import jax
@@ -135,13 +139,21 @@ def test_wrapper_raises_on_mixed_devices_and_counts_nothing_on_cpu():
     before = puc.LAUNCHES
     _plain(spec, inputs)
     assert puc.LAUNCHES == before
-    # Tiles shrink as the trunk widens, until nothing fits.
-    assert puc.tile_size(spec) == 128
-    assert puc.tile_size(spec._replace(hidden=64)) == 128
-    assert puc.tile_size(spec._replace(hidden=128)) in (16, 32)
-    assert not puc.update_supported(spec._replace(hidden=256))
+    # Tiles shrink as the trunk widens; past about hidden 160 the gradient
+    # sums leave shared memory, past about 256 the bf16 weights too.
+    assert puc.layout(spec) == (64, False, False)
+    assert puc.layout(spec._replace(hidden=64)) == (64, False, False)
+    assert puc.layout(spec._replace(hidden=100)) == (64, False, False)
+    assert puc.layout(spec._replace(hidden=128)) == (32, False, False)
+    assert puc.layout(spec._replace(hidden=256)) == (16, True, False)
+    assert puc.layout(spec._replace(hidden=320)) == (32, True, True)
+    for hidden in (100, 256, 512, 1024):
+        assert puc.update_supported(spec._replace(hidden=hidden))
+    # Only a trunk whose fp32 activation tiles alone overflow a block is
+    # refused.
+    assert not puc.update_supported(spec._replace(hidden=1100))
     with pytest.raises(ValueError, match="does not take"):
-        puc.build(spec._replace(hidden=256))
+        puc.build(spec._replace(hidden=1100))
     packed, perm, stats, params = inputs
     with pytest.raises(ValueError, match="CUDA tensors"):
         puc.launch(spec, torch.from_numpy(packed), torch.from_numpy(perm),
@@ -470,21 +482,29 @@ def test_trainer_spec_matches_the_jax_trainers(name, kwargs):
 
 
 def test_trainer_refuses_a_hidden_size_the_kernel_does_not_take():
-    """Asked for the kernel with a trunk too wide for it, a trainer raises
-    when it is built instead of training through autograd; the autograd
-    update takes the same width when it is asked for."""
+    """A hidden-256 trunk (gradient sums in device memory on the card)
+    trains a step through the kernel's path (its plain version on the
+    CPU); only a trunk too wide for the kernel at all makes the trainer
+    raise when it is built, instead of training through autograd, and the
+    autograd update takes that width when it is asked for."""
     wide = dict(SMALL, hidden=256)
+    env, step, trainer = torch_ppo.init_training(
+        "dispersion", 8, 0, torch_ppo.PPOConfig(**wide), device="cpu")
+    assert trainer.fused and puc.layout(trainer.spec)[1]
+    before = [p.detach().clone() for p in trainer.model.ordered_parameters()]
+    trainer, metrics = step(trainer)
+    assert np.isfinite(float(metrics["loss"]))
+    after = trainer.model.ordered_parameters()
+    assert all(bool(torch.isfinite(p).all()) for p in after)
+    assert any(not torch.equal(p, b) for p, b in zip(after, before))
+    too_wide = dict(SMALL, hidden=1100)
     with pytest.raises(ValueError, match="does not take"):
         torch_ppo.init_training("dispersion", 8, 0,
-                                torch_ppo.PPOConfig(**wide), device="cpu")
+                                torch_ppo.PPOConfig(**too_wide), device="cpu")
     _, _, trainer = torch_ppo.init_training(
-        "dispersion", 8, 0, torch_ppo.PPOConfig(**wide, fused_update=False),
-        device="cpu")
+        "dispersion", 8, 0,
+        torch_ppo.PPOConfig(**too_wide, fused_update=False), device="cpu")
     assert not trainer.fused
-    _, _, trainer = torch_ppo.init_training(
-        "dispersion", 8, 0, torch_ppo.PPOConfig(**dict(SMALL, hidden=128)),
-        device="cpu")
-    assert trainer.fused
 
 
 def test_ppo_improves_on_shaped_reward():
@@ -514,18 +534,29 @@ HOST_CASES = {
         dict(obs_d=6, act_w=1, hidden=8, lb=16, mb=64, n_logits=5), 8),
     "multidiscrete": (
         dict(obs_d=6, act_w=3, hidden=32, lb=16, mb=320, n_logits=4), 24),
-    # hidden 64 takes the vectorised product loops; 200 samples leave a
-    # ragged second tile.
+    # 200 samples leave a ragged last tile.
     "hidden64_ragged_tile": (
         dict(obs_d=15, act_w=2, hidden=64, lb=40, mb=200), 7),
-    # Wider trunks are compiled with smaller tiles (64 samples at hidden
-    # 96, 32 or 16 at hidden 128), and their dW sums take several passes.
+    # Hidden and obs_d that are not multiples of 16 are padded with zeros.
     "hidden96_tile64": (
         dict(obs_d=15, act_w=2, hidden=96, lb=40, mb=200), 7),
+    "hidden100": (
+        dict(obs_d=22, act_w=2, hidden=100, lb=40, mb=200), 7),
+    # Wider trunks are compiled with smaller tiles: 32 samples at hidden
+    # 128, 16 at 160; at 256 the gradient sums live in the block's row of
+    # the partial buffer.
     "hidden128_tile32": (
         dict(obs_d=15, act_w=2, hidden=128, lb=40, mb=200), 7),
+    # (Its tile is 32 samples, as layout() gives this width.)
     "hidden128_tile16_multidiscrete": (
         dict(obs_d=15, act_w=2, hidden=128, lb=8, mb=72, n_logits=3), 12),
+    "hidden160_tile16": (
+        dict(obs_d=15, act_w=2, hidden=160, lb=40, mb=120), 4),
+    "hidden256_global_sums": (
+        dict(obs_d=15, act_w=2, hidden=256, lb=40, mb=120), 4),
+    # Past about hidden 256 the weights are read from device memory.
+    "hidden300_global_weights": (
+        dict(obs_d=15, act_w=2, hidden=300, lb=40, mb=120), 4),
 }
 
 
@@ -556,7 +587,7 @@ def test_kernel_source_on_the_host_matches_plain(name, tmp_path):
     lib = ctypes.CDLL(lib_path)
     assert lib.vmt_ppo_p() == puc.flat_size(spec)
     assert lib.vmt_ppo_smem_bytes() == puc.smem_bytes(spec,
-                                                      puc.tile_size(spec))
+                                                      *puc.layout(spec))
     lib.vmt_ppo_update.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int,
                                                            ctypes.c_void_p]
     packed, perm, stats, params = random_ppo_inputs(spec, nb_tot, seed=5)

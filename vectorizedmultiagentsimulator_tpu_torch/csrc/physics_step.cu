@@ -21,23 +21,40 @@
 // per-env joint fixed rotation step through the plain version
 // (physics_cuda.step_supported decides at finalize).
 //
-// What bounds it on the H100.  For transport (N=6 entities, A=4 agents)
-// an env moves 144 B of state in (pos, vel, rot, ang_vel), 144 B out and
-// 48 B of action force/torque: about 340 B, so 30k envs move about 10 MB a
-// step, a few microseconds at 3.35 TB/s.  Memory is not the limit: launch
-// overhead and each thread's arithmetic over n_pairs x substeps are (a
-// box-box pair is 32 segment-segment tests, a box-line pair 4).  The
-// joint worlds are the heaviest: joint_passage (23 entities, 10 substeps,
-// 54 pairs and 3 constraints) is about 7.5e4 operations a thread, 0.03 ms
-// of the card's fp32 rate at 30k envs against 0.01 ms of bytes; a joint
-// constraint (two sincos pairs, two soft forces, lever-arm torques) costs
-// about as much as three sphere-sphere pairs.  One
-// thread per env makes the whole step one launch with no inter-thread
-// communication, and keeps every intermediate (per-entity force sums, the
-// contact geometry) in registers and thread-local memory, never in device
-// memory.  The native [B, N, .] layout is read and written as the plain
-// version has it, out of place; a structure-of-arrays layout with the env
-// batch contiguous (coalesced loads) is later work.
+// What bounds it on the H100.  An env moves its state in and out once
+// (transport: about 340 B, 10 MB at 30k envs, a few microseconds at
+// 3.35 TB/s); the arithmetic is n_pairs x substeps per env (a box-box pair
+// is 32 segment-segment tests, a box-line pair 4, a joint constraint about
+// three sphere-sphere pairs): joint_passage (23 entities, 10 substeps, 54
+// pairs, 3 constraints) is about 7.5e4 operations an env, 0.03 ms of the
+// card's fp32 rate at 30k envs.  What held the first design back (one
+// thread an env) was latency: twelve per-thread entity arrays
+// indexed through the pair table lived in local memory (a 3,104-byte
+// stack), 30k envs were only about 7 warps an SM to hide it, neighbouring
+// threads read state N x 8 bytes apart, and the static tables were read
+// from global memory inside the loops.
+//
+// Design.  A group of `lanes` threads (a power of two up to 8; Dims::lanes,
+// chosen at finalize from the world's weighted pair cost) steps one env,
+// and a block of 32 x lanes threads steps 32 envs: warp l holds lane l of
+// all 32 envs, so the 32 threads of a warp always work on the same pair or
+// constraint of 32 envs, as one thread an env did, and no warp diverges on
+// which item it takes.  The block's shared memory holds the static tables
+// (loaded once a block), its envs' state (sized by the world's N, envs at
+// an odd stride so the same entity of the warp's 32 envs sits in 32
+// distinct banks) and one row of per-entity force/torque sums per lane and
+// env.  State is read and written through shared memory as the contiguous
+// runs of the native [B, N, 2] / [B, N] tensors that the block's envs
+// cover, neighbouring threads on neighbouring words.  Each substep the
+// lanes take the joint constraints and then the pairs of each class in
+// table order round-robin (item k to lane k % lanes), each adding into its
+// own row; then each lane integrates the entities i = lane, lane + lanes,
+// ... with the rows added in lane order, and refreshes the cos and sin of
+// each entity's rotation (and of it + pi/2) that every pair of the next
+// substep reads, where each pair computed its own before: most of the
+// operations of a box or line pair were those cosf/sinf.  No atomics: two
+// launches give the same bits, and lanes = 1 gives the first design's sums
+// in its order.
 //
 // Parity with the plain version.  This file is built with -fmad=false
 // and repeats the plain version's operations in its order: box sides in
@@ -49,24 +66,41 @@
 // math.  The contact tests (dist > dist_min) then see the plain version's
 // bits, so a one-ulp difference never switches a contact on in one and
 // off in the other.  What differs is the order of the per-entity force
-// sums (the plain version sums pair contributions with a matmul).  A
-// joint world is stiff (joint_force 900 over 10-15 substeps), so that
-// difference grows about 2x a substep there.
+// sums (the plain version sums pair contributions with a matmul; here
+// each lane's items in order, then the lanes in order).  A joint world is
+// stiff (joint_force 900 over 10-15 substeps), so that difference grows
+// about 2x a substep there.
 //
-// Compiled as host C++ (no __CUDACC__), the same per-thread body runs as a
-// loop over the envs, which is how the CPU tests run this source.
+// Compiled as host C++ (no __CUDACC__), the same phases run as loops over
+// the thread index, block after block, which is how the CPU tests run
+// this source.
 
 #include <cmath>
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define DEV __device__ __forceinline__
+#define HD __host__ __device__ __forceinline__
+#define PHASE_BEGIN { const int tid = threadIdx.x;
+#define PHASE_END } __syncthreads();
+
 #else
+#include <cstddef>
+#include <vector>
 #define DEV inline
+#define HD inline
+#define PHASE_BEGIN for (int tid = 0; tid < VMT_WARP * d.lanes; ++tid) {
+#define PHASE_END }
 using std::isfinite;
 #endif
 
 #define VMT_MAX_ENTITIES 64
-#define VMT_THREADS 128
+#define VMT_WARP 32      // envs a block: one a thread of each warp
+#define VMT_MAX_LANES 8  // warps a block
+// Blocks of VMT_MAX_LANES warps an SM that the register budget is set for
+// (__launch_bounds__): 2 caps a thread at 128 registers, without spills;
+// 3 and 4 (80 and 64 registers) spilled and ran slower on the H100.
+#define VMT_MIN_BLOCKS 2
+#define VMT_MAX_SMEM_BYTES 232448
 #define VMT_LINE_MIN_DIST (4.0f / 6e2f)
 
 // The pair classes, in the order of their rows in Tables::pairs
@@ -112,6 +146,8 @@ struct Dims {
       torque_constraint_force;
   int has_x_semidim, has_y_semidim;
   float x_semidim, y_semidim;
+  // Threads per env: a power of two up to 32 (physics_cuda.lane_group).
+  int lanes;
 };
 
 namespace {
@@ -163,9 +199,22 @@ struct Seg {
   float x, y, c, s, len;
 };
 
-DEV Seg make_seg(float x, float y, float rot, float len) {
-  return Seg{x, y, cosf(rot), sinf(rot), len};
+// An entity's pose: centre, cos and sin of its rotation and of its
+// rotation + pi/2 (what geometry.all_lines_box turns a box's sides by),
+// computed once a substep per entity; every pair reads the same bits.
+struct Pose {
+  float x, y, c, s, pc, ps;
+};
+
+DEV void trig(float rot, float* c, float* s, float* pc, float* ps) {
+  *c = cosf(rot);
+  *s = sinf(rot);
+  const float prot = rot + 1.57079632679489662f;
+  *pc = cosf(prot);
+  *ps = sinf(prot);
 }
+
+DEV Seg make_seg(const Pose& p, float len) { return Seg{p.x, p.y, p.c, p.s, len}; }
 
 DEV void closest_on_seg(const Seg& g, float qx, float qy, float* ox,
                         float* oy) {
@@ -174,11 +223,8 @@ DEV void closest_on_seg(const Seg& g, float qx, float qy, float* ox,
 
 // geometry.all_lines_box: the 4 sides in the reference order (+length,
 // -length, +width, -width).
-DEV void box_sides(float bx, float by, float rot, float width, float length,
-                   Seg* sides) {
-  float hc = cosf(rot), hs = sinf(rot);
-  float prot = rot + 1.57079632679489662f;
-  float pc = cosf(prot), ps = sinf(prot);
+DEV void box_sides(const Pose& p, float width, float length, Seg* sides) {
+  const float bx = p.x, by = p.y, hc = p.c, hs = p.s, pc = p.pc, ps = p.ps;
   float hl = length / 2.0f, hw = width / 2.0f;
   sides[0] = Seg{bx + hc * hl, by + hs * hl, pc, ps, width};
   sides[1] = Seg{bx - hc * hl, by - hs * hl, pc, ps, width};
@@ -187,11 +233,10 @@ DEV void box_sides(float bx, float by, float rot, float width, float length,
 }
 
 // geometry.closest_point_box: first minimum over the 4 sides.
-DEV void closest_on_box(float bx, float by, float rot, float width,
-                        float length, float qx, float qy, float* ox,
-                        float* oy) {
+DEV void closest_on_box(const Pose& p, float width, float length, float qx,
+                        float qy, float* ox, float* oy) {
   Seg sides[4];
-  box_sides(bx, by, rot, width, length, sides);
+  box_sides(p, width, length, sides);
   float best_x = 0.0f, best_y = 0.0f, best_d = 0.0f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -341,299 +386,463 @@ DEV void inner_point(bool hollow, float outx, float outy, float surfx,
   *extra = fabsf(x_mag);
 }
 
-// One env's whole step: what one thread of the kernel computes.
-DEV void physics_step_one(int b, const float* __restrict__ pos,
-                          const float* __restrict__ vel,
-                          const float* __restrict__ rot,
-                          const float* __restrict__ ang_vel,
-                          const float* __restrict__ force_a,
-                          const float* __restrict__ torque_a,
-                          const float* __restrict__ dyn_g,
-                          float* __restrict__ out_pos,
-                          float* __restrict__ out_vel,
-                          float* __restrict__ out_rot,
-                          float* __restrict__ out_ang_vel, const Tables& t,
-                          const Dims& d) {
-  const int N = d.N;
+// ---- The block's shared memory ---- //
+//
+// The world's static tables, loaded once a block, then the state of the
+// block's E = VMT_WARP envs, one array a field with the envs at a stride of
+// NS = N | 1 words (odd: the same entity of a warp's envs falls in distinct
+// banks), then each lane's per-entity force and torque sums of the current
+// substep, [lanes][3][E][NS].  Ints and floats live in regions of their
+// own.  Both the card and the host build carve it with `carve`.
+struct Shared {
+  int *movable, *rotatable, *dyn_row, *hollow, *pairs, *joint_idx;
+  float *mass, *moment, *drag, *max_speed, *v_range, *gravity, *radius,
+      *length, *width, *lin_fric, *ang_fric, *joint_geom;
+  // [E * NS] each; ct, st, cp, sp: cos and sin of th and of th + pi/2
+  float *px, *py, *vx, *vy, *th, *w, *bfx, *bfy, *btq, *ct, *st, *cp, *sp;
+  // [lanes][3][E][NS]: fx, fy, torque sums
+  float* part;
+};
 
-  float px[VMT_MAX_ENTITIES], py[VMT_MAX_ENTITIES];
-  float vx[VMT_MAX_ENTITIES], vy[VMT_MAX_ENTITIES];
-  float th[VMT_MAX_ENTITIES], w[VMT_MAX_ENTITIES];
-  // Forces that stay fixed over the substeps: action + gravity.
-  float bfx[VMT_MAX_ENTITIES], bfy[VMT_MAX_ENTITIES], btq[VMT_MAX_ENTITIES];
-  // Per-substep pair force/torque sums.
-  float cfx[VMT_MAX_ENTITIES], cfy[VMT_MAX_ENTITIES], ctq[VMT_MAX_ENTITIES];
+HD int n_pairs(const Dims& d) { return d.pair_start[N_CLASSES]; }
+HD int env_stride(const Dims& d) { return d.N | 1; }
+HD int envs_per_block(const Dims&) { return VMT_WARP; }
 
-  const size_t pb = (size_t)b * N;
-  for (int i = 0; i < N; ++i) {
-    px[i] = pos[(pb + i) * 2];
-    py[i] = pos[(pb + i) * 2 + 1];
-    vx[i] = vel[(pb + i) * 2];
-    vy[i] = vel[(pb + i) * 2 + 1];
-    th[i] = rot[pb + i];
-    w[i] = ang_vel[pb + i];
-    bfx[i] = 0.0f;
-    bfy[i] = 0.0f;
-    btq[i] = 0.0f;
+HD int int_words(const Dims& d) { return 4 * d.N + 2 * n_pairs(d) + 3 * d.J; }
+
+HD int float_words(const Dims& d) {
+  const int E = envs_per_block(d), NS = env_stride(d);
+  return 12 * d.N + 6 * d.J + 13 * E * NS + E * d.lanes * 3 * NS;
+}
+
+HD int shared_bytes(const Dims& d) {
+  return 4 * (int_words(d) + float_words(d));
+}
+
+DEV Shared carve(void* base, const Dims& d) {
+  Shared s;
+  const int N = d.N, E = envs_per_block(d), NS = env_stride(d);
+  int* ip = static_cast<int*>(base);
+  s.movable = ip; ip += N;
+  s.rotatable = ip; ip += N;
+  s.dyn_row = ip; ip += N;
+  s.hollow = ip; ip += N;
+  s.pairs = ip; ip += 2 * n_pairs(d);
+  s.joint_idx = ip; ip += 3 * d.J;
+  float* fp = reinterpret_cast<float*>(ip);
+  s.mass = fp; fp += N;
+  s.moment = fp; fp += N;
+  s.drag = fp; fp += N;
+  s.max_speed = fp; fp += N;
+  s.v_range = fp; fp += N;
+  s.gravity = fp; fp += 2 * N;
+  s.radius = fp; fp += N;
+  s.length = fp; fp += N;
+  s.width = fp; fp += N;
+  s.lin_fric = fp; fp += N;
+  s.ang_fric = fp; fp += N;
+  s.joint_geom = fp; fp += 6 * d.J;
+  float** fields[13] = {&s.px, &s.py, &s.vx, &s.vy, &s.th, &s.w, &s.bfx,
+                        &s.bfy, &s.btq, &s.ct, &s.st, &s.cp, &s.sp};
+  for (int f = 0; f < 13; ++f) {
+    *fields[f] = fp;
+    fp += E * NS;
   }
-  // Action force/torque (landmarks get none; immovable agents masked).
-  for (int j = 0; j < d.A; ++j) {
-    const int i = d.n_landmarks + j;
-    const size_t ab = (size_t)b * d.A + j;
-    if (t.movable[i]) {
-      bfx[i] = force_a[ab * 2];
-      bfy[i] = force_a[ab * 2 + 1];
-    }
-    if (t.rotatable[i]) btq[i] = torque_a[ab];
-  }
-  // Gravity: static table x mass, plus the per-env dyn_gravity row.
-  for (int i = 0; i < N; ++i) {
-    if (!t.movable[i]) continue;
-    float gx = t.gravity[2 * i] * t.mass[i];
-    float gy = t.gravity[2 * i + 1] * t.mass[i];
-    const int k = t.dyn_row[i];
-    if (k >= 0) {
-      const size_t gb = ((size_t)b * d.D + k) * 2;
-      gx = gx + dyn_g[gb] * t.mass[i];
-      gy = gy + dyn_g[gb + 1] * t.mass[i];
-    }
-    bfx[i] = bfx[i] + gx;
-    bfy[i] = bfy[i] + gy;
-  }
+  s.part = fp;
+  return s;
+}
 
-  // Pair contributions: forces to movable entities, torques (r x f about
-  // the entity's centre, TorchUtils.compute_torque) to rotatable ones, as
-  // the plain version's incidence matrices mask them.
-  auto add_force = [&](int i, float fx, float fy) {
-    if (t.movable[i]) {
-      cfx[i] += fx;
-      cfy[i] += fy;
-    }
-  };
-  auto add_torque = [&](int i, float rx, float ry, float fx, float fy) {
-    if (t.rotatable[i]) ctq[i] += rx * fy - ry * fx;
-  };
+// One env's view: its entities' state (pointers offset to the env) and one
+// lane's sums.
+struct EnvView {
+  const float *px, *py, *th, *ct, *st, *cp, *sp;
+  float *cfx, *cfy, *ctq;
+};
 
-  const float dt = d.sub_dt;
-  for (int substep = 0; substep < d.substeps; ++substep) {
-    for (int i = 0; i < N; ++i) {
-      cfx[i] = 0.0f;
-      cfy[i] = 0.0f;
-      ctq[i] = 0.0f;
-    }
+DEV Pose pose(const EnvView& v, int i) {
+  return Pose{v.px[i], v.py[i], v.ct[i], v.st[i], v.cp[i], v.sp[i]};
+}
 
-    // ---- joint constraints (core.py:2201-2292), before the contacts as
-    // in the plain version's incidence rows ---- //
-    for (int j = 0; j < d.J; ++j) {
-      const int ia = t.joint_idx[3 * j], ib = t.joint_idx[3 * j + 1];
-      const bool rotate = t.joint_idx[3 * j + 2] != 0;
-      const float* g = t.joint_geom + 6 * j;
-      // TorchUtils.rotate_vector of each anchor offset, added to the centre.
-      const float ca = cosf(th[ia]), sa = sinf(th[ia]);
-      const float cb = cosf(th[ib]), sb = sinf(th[ib]);
-      const float pjax = px[ia] + (g[0] * ca - g[1] * sa);
-      const float pjay = py[ia] + (g[0] * sa + g[1] * ca);
-      const float pjbx = px[ib] + (g[2] * cb - g[3] * sb);
-      const float pjby = py[ib] + (g[2] * sb + g[3] * cb);
-      float fx1, fy1, fx2, fy2;  // attractive, repulsive; on a
-      constraint_force(pjax - pjbx, pjay - pjby, g[4], d.joint_force, true, d,
-                       &fx1, &fy1);
-      constraint_force(pjax - pjbx, pjay - pjby, g[4], d.joint_force, false,
-                       d, &fx2, &fy2);
-      const float fx = fx1 + fx2, fy = fy1 + fy2;
-      add_force(ia, fx, fy);
-      add_force(ib, -fx, -fy);
-      // Lever-arm torques r x f, r = anchor point - centre.
-      const float rax = pjax - px[ia], ray = pjay - py[ia];
-      const float rbx = pjbx - px[ib], rby = pjby - py[ib];
-      float ta = rax * fy - ray * fx;
-      float tb = rbx * (-fy) - rby * (-fx);
-      if (!rotate) {
-        // World._constraint_torques with rot_b + fixed rotation.
-        const float dr = th[ia] - (th[ib] + g[5]);
-        const float adr = safe_norm2(dr, 0.0f);
-        const float sgn = (dr > 0.0f) ? 1.0f : ((dr < 0.0f) ? -1.0f : 0.0f);
-        float tq = d.torque_constraint_force * sgn * (expf(adr) - 1.0f);
-        if (adr < 1e-9f) tq = 0.0f;
-        ta = ta + -tq;
-        tb = tb + tq;
-      }
-      if (t.rotatable[ia]) ctq[ia] += ta;
-      if (t.rotatable[ib]) ctq[ib] += tb;
-    }
-
-    // ---- sphere-sphere contacts (core.py:2294-2339) ---- //
-    for (int p = d.pair_start[SS]; p < d.pair_start[SS + 1]; ++p) {
-      const int a = t.pairs[2 * p], c = t.pairs[2 * p + 1];
-      float fx, fy;
-      soft_contact(px[a] - px[c], py[a] - py[c], t.radius[a] + t.radius[c], d,
-                   &fx, &fy);
-      add_force(a, fx, fy);
-      add_force(c, -fx, -fy);
-    }
-
-    // ---- box-sphere contacts (core.py:2459-2552) ---- //
-    for (int p = d.pair_start[BS]; p < d.pair_start[BS + 1]; ++p) {
-      const int bi = t.pairs[2 * p], si = t.pairs[2 * p + 1];
-      float clx, cly;
-      closest_on_box(px[bi], py[bi], th[bi], t.width[bi], t.length[bi],
-                     px[si], py[si], &clx, &cly);
-      float ix, iy, d_extra;
-      inner_point(t.hollow[bi], px[si], py[si], clx, cly, px[bi], py[bi], &ix,
-                  &iy, &d_extra);
-      float fx, fy;  // force on the sphere
-      soft_contact(px[si] - ix, py[si] - iy,
-                   t.radius[si] + VMT_LINE_MIN_DIST + d_extra, d, &fx, &fy);
-      add_force(si, fx, fy);
-      add_force(bi, -fx, -fy);
-      add_torque(bi, clx - px[bi], cly - py[bi], -fx, -fy);
-    }
-
-    // ---- line-sphere contacts (core.py:2341-2392) ---- //
-    for (int p = d.pair_start[LS]; p < d.pair_start[LS + 1]; ++p) {
-      const int li = t.pairs[2 * p], si = t.pairs[2 * p + 1];
-      const Seg line = make_seg(px[li], py[li], th[li], t.length[li]);
-      float clx, cly;
-      closest_on_seg(line, px[si], py[si], &clx, &cly);
-      float fx, fy;  // force on the sphere
-      soft_contact(px[si] - clx, py[si] - cly,
-                   t.radius[si] + VMT_LINE_MIN_DIST, d, &fx, &fy);
-      add_force(si, fx, fy);
-      add_force(li, -fx, -fy);
-      add_torque(li, clx - px[li], cly - py[li], -fx, -fy);
-    }
-
-    // ---- line-line contacts (core.py:2394-2457) ---- //
-    for (int p = d.pair_start[LL]; p < d.pair_start[LL + 1]; ++p) {
-      const int ia = t.pairs[2 * p], ib = t.pairs[2 * p + 1];
-      float pax, pay, pbx, pby;
-      closest_seg_seg(make_seg(px[ia], py[ia], th[ia], t.length[ia]),
-                      make_seg(px[ib], py[ib], th[ib], t.length[ib]), &pax,
-                      &pay, &pbx, &pby);
-      float fx, fy;  // force on a
-      soft_contact(pax - pbx, pay - pby, VMT_LINE_MIN_DIST, d, &fx, &fy);
-      add_force(ia, fx, fy);
-      add_force(ib, -fx, -fy);
-      add_torque(ia, pax - px[ia], pay - py[ia], fx, fy);
-      add_torque(ib, pbx - px[ib], pby - py[ib], -fx, -fy);
-    }
-
-    // ---- box-line contacts (core.py:2554-2653) ---- //
-    for (int p = d.pair_start[BL]; p < d.pair_start[BL + 1]; ++p) {
-      const int bi = t.pairs[2 * p], li = t.pairs[2 * p + 1];
-      Seg sides[4];
-      box_sides(px[bi], py[bi], th[bi], t.width[bi], t.length[bi], sides);
-      float pbx, pby, plx, ply;
-      closest_box_seg(sides, make_seg(px[li], py[li], th[li], t.length[li]),
-                      &pbx, &pby, &plx, &ply);
-      float ix, iy, d_extra;
-      inner_point(t.hollow[bi], plx, ply, pbx, pby, px[bi], py[bi], &ix, &iy,
-                  &d_extra);
-      float fx, fy;  // force on the box
-      soft_contact(ix - plx, iy - ply, VMT_LINE_MIN_DIST + d_extra, d, &fx,
-                   &fy);
-      add_force(bi, fx, fy);
-      add_force(li, -fx, -fy);
-      add_torque(bi, pbx - px[bi], pby - py[bi], fx, fy);
-      add_torque(li, plx - px[li], ply - py[li], -fx, -fy);
-    }
-
-    // ---- box-box contacts (core.py:2655-2786) ---- //
-    for (int p = d.pair_start[BB]; p < d.pair_start[BB + 1]; ++p) {
-      const int ia = t.pairs[2 * p], ib = t.pairs[2 * p + 1];
-      Seg sa[4], sb[4];
-      box_sides(px[ia], py[ia], th[ia], t.width[ia], t.length[ia], sa);
-      box_sides(px[ib], py[ib], th[ib], t.width[ib], t.length[ib], sb);
-      float pax, pay, pbx, pby;
-      closest_box_box(sa, sb, &pax, &pay, &pbx, &pby);
-      float iax, iay, da, ibx, iby, db;
-      inner_point(t.hollow[ia], pbx, pby, pax, pay, px[ia], py[ia], &iax, &iay,
-                  &da);
-      inner_point(t.hollow[ib], pax, pay, pbx, pby, px[ib], py[ib], &ibx, &iby,
-                  &db);
-      float fx, fy;  // force on a
-      soft_contact(iax - ibx, iay - iby, da + db + VMT_LINE_MIN_DIST, d, &fx,
-                   &fy);
-      add_force(ia, fx, fy);
-      add_force(ib, -fx, -fy);
-      add_torque(ia, pax - px[ia], pay - py[ia], fx, fy);
-      add_torque(ib, pbx - px[ib], pby - py[ib], -fx, -fy);
-    }
-
-    // ---- forces, then integrate (core.py:2860-2908) ---- //
-    for (int i = 0; i < N; ++i) {
-      float fx = bfx[i], fy = bfy[i], tq = btq[i];
-      // static/kinetic friction (core.py:2054-2073)
-      if (t.lin_fric[i] > 0.0f) {
-        const float speed = safe_norm2(vx[i], vy[i]);
-        if (speed != 0.0f) {
-          const float fc = t.lin_fric[i] * t.mass[i];
-          fx = fx + -(vx[i] / speed) * fminf(fc, fabsf(vx[i]) / dt * t.mass[i]);
-          fy = fy + -(vy[i] / speed) * fminf(fc, fabsf(vy[i]) / dt * t.mass[i]);
-        }
-      }
-      if (t.ang_fric[i] > 0.0f) {
-        const float aspeed = safe_norm2(w[i], 0.0f);
-        if (aspeed != 0.0f) {
-          const float tc = t.ang_fric[i] * t.moment[i];
-          tq = tq + -(w[i] / aspeed) * fminf(tc, fabsf(w[i]) / dt * t.moment[i]);
-        }
-      }
-      fx = fx + cfx[i];
-      fy = fy + cfy[i];
-      tq = tq + ctq[i];
-
-      if (t.movable[i]) {
-        if (substep == 0) {
-          const float keep = 1.0f - t.drag[i];
-          vx[i] = vx[i] * keep;
-          vy[i] = vy[i] * keep;
-        }
-        float nvx = vx[i] + fx / t.mass[i] * dt;
-        float nvy = vy[i] + fy / t.mass[i] * dt;
-        const float ms = t.max_speed[i];
-        if (isfinite(ms)) {
-          const float n = safe_norm2(nvx, nvy);
-          if (n > ms) {
-            const float safe = fmaxf(n, 1e-12f);
-            nvx = nvx / safe * ms;
-            nvy = nvy / safe * ms;
-          }
-        }
-        const float vr = t.v_range[i];
-        if (isfinite(vr)) {
-          nvx = fminf(fmaxf(nvx, -vr), vr);
-          nvy = fminf(fmaxf(nvy, -vr), vr);
-        }
-        vx[i] = nvx;
-        vy[i] = nvy;
-        float npx = px[i] + nvx * dt;
-        float npy = py[i] + nvy * dt;
-        if (d.has_x_semidim) npx = fminf(fmaxf(npx, -d.x_semidim), d.x_semidim);
-        if (d.has_y_semidim) npy = fminf(fmaxf(npy, -d.y_semidim), d.y_semidim);
-        px[i] = npx;
-        py[i] = npy;
-      }
-      if (t.rotatable[i]) {
-        if (substep == 0) w[i] = w[i] * (1.0f - t.drag[i]);
-        w[i] = w[i] + tq / t.moment[i] * dt;
-        th[i] = th[i] + w[i] * dt;
-      }
-    }
-  }
-
-  for (int i = 0; i < N; ++i) {
-    out_pos[(pb + i) * 2] = px[i];
-    out_pos[(pb + i) * 2 + 1] = py[i];
-    out_vel[(pb + i) * 2] = vx[i];
-    out_vel[(pb + i) * 2 + 1] = vy[i];
-    out_rot[pb + i] = th[i];
-    out_ang_vel[pb + i] = w[i];
+// Pair contributions: forces to movable entities, torques (r x f about the
+// entity's centre, TorchUtils.compute_torque) to rotatable ones, as the
+// plain version's incidence matrices mask them.
+DEV void add_force(const Shared& s, const EnvView& v, int i, float fx,
+                   float fy) {
+  if (s.movable[i]) {
+    v.cfx[i] += fx;
+    v.cfy[i] += fy;
   }
 }
 
+DEV void add_torque(const Shared& s, const EnvView& v, int i, float rx,
+                    float ry, float fx, float fy) {
+  if (s.rotatable[i]) v.ctq[i] += rx * fy - ry * fx;
+}
+
+// Joint constraint j (core.py:2201-2292).
+DEV void joint_item(int j, const Shared& s, const EnvView& v, const Dims& d) {
+  const float *px = v.px, *py = v.py, *th = v.th;
+  const int ia = s.joint_idx[3 * j], ib = s.joint_idx[3 * j + 1];
+  const bool rotate = s.joint_idx[3 * j + 2] != 0;
+  const float* g = s.joint_geom + 6 * j;
+  // TorchUtils.rotate_vector of each anchor offset, added to the centre.
+  const float ca = v.ct[ia], sa = v.st[ia];
+  const float cb = v.ct[ib], sb = v.st[ib];
+  const float pjax = px[ia] + (g[0] * ca - g[1] * sa);
+  const float pjay = py[ia] + (g[0] * sa + g[1] * ca);
+  const float pjbx = px[ib] + (g[2] * cb - g[3] * sb);
+  const float pjby = py[ib] + (g[2] * sb + g[3] * cb);
+  float fx1, fy1, fx2, fy2;  // attractive, repulsive; on a
+  constraint_force(pjax - pjbx, pjay - pjby, g[4], d.joint_force, true, d,
+                   &fx1, &fy1);
+  constraint_force(pjax - pjbx, pjay - pjby, g[4], d.joint_force, false, d,
+                   &fx2, &fy2);
+  const float fx = fx1 + fx2, fy = fy1 + fy2;
+  add_force(s, v, ia, fx, fy);
+  add_force(s, v, ib, -fx, -fy);
+  // Lever-arm torques r x f, r = anchor point - centre.
+  const float rax = pjax - px[ia], ray = pjay - py[ia];
+  const float rbx = pjbx - px[ib], rby = pjby - py[ib];
+  float ta = rax * fy - ray * fx;
+  float tb = rbx * (-fy) - rby * (-fx);
+  if (!rotate) {
+    // World._constraint_torques with rot_b + fixed rotation.
+    const float dr = th[ia] - (th[ib] + g[5]);
+    const float adr = safe_norm2(dr, 0.0f);
+    const float sgn = (dr > 0.0f) ? 1.0f : ((dr < 0.0f) ? -1.0f : 0.0f);
+    float tq = d.torque_constraint_force * sgn * (expf(adr) - 1.0f);
+    if (adr < 1e-9f) tq = 0.0f;
+    ta = ta + -tq;
+    tb = tb + tq;
+  }
+  if (s.rotatable[ia]) v.ctq[ia] += ta;
+  if (s.rotatable[ib]) v.ctq[ib] += tb;
+}
+
+// Row p of the packed pair table, of whichever class it belongs to.
+DEV void pair_item(int p, const Shared& s, const EnvView& v, const Dims& d) {
+  const float *px = v.px, *py = v.py;
+  const int ia = s.pairs[2 * p], ib = s.pairs[2 * p + 1];
+  if (p < d.pair_start[SS + 1]) {
+    // sphere-sphere (core.py:2294-2339)
+    float fx, fy;
+    soft_contact(px[ia] - px[ib], py[ia] - py[ib],
+                 s.radius[ia] + s.radius[ib], d, &fx, &fy);
+    add_force(s, v, ia, fx, fy);
+    add_force(s, v, ib, -fx, -fy);
+  } else if (p < d.pair_start[BS + 1]) {
+    // box-sphere (core.py:2459-2552)
+    const int bi = ia, si = ib;
+    float clx, cly;
+    closest_on_box(pose(v, bi), s.width[bi], s.length[bi], px[si], py[si],
+                   &clx, &cly);
+    float ix, iy, d_extra;
+    inner_point(s.hollow[bi], px[si], py[si], clx, cly, px[bi], py[bi], &ix,
+                &iy, &d_extra);
+    float fx, fy;  // force on the sphere
+    soft_contact(px[si] - ix, py[si] - iy,
+                 s.radius[si] + VMT_LINE_MIN_DIST + d_extra, d, &fx, &fy);
+    add_force(s, v, si, fx, fy);
+    add_force(s, v, bi, -fx, -fy);
+    add_torque(s, v, bi, clx - px[bi], cly - py[bi], -fx, -fy);
+  } else if (p < d.pair_start[LS + 1]) {
+    // line-sphere (core.py:2341-2392)
+    const int li = ia, si = ib;
+    const Seg line = make_seg(pose(v, li), s.length[li]);
+    float clx, cly;
+    closest_on_seg(line, px[si], py[si], &clx, &cly);
+    float fx, fy;  // force on the sphere
+    soft_contact(px[si] - clx, py[si] - cly, s.radius[si] + VMT_LINE_MIN_DIST,
+                 d, &fx, &fy);
+    add_force(s, v, si, fx, fy);
+    add_force(s, v, li, -fx, -fy);
+    add_torque(s, v, li, clx - px[li], cly - py[li], -fx, -fy);
+  } else if (p < d.pair_start[LL + 1]) {
+    // line-line (core.py:2394-2457)
+    float pax, pay, pbx, pby;
+    closest_seg_seg(make_seg(pose(v, ia), s.length[ia]),
+                    make_seg(pose(v, ib), s.length[ib]), &pax, &pay, &pbx,
+                    &pby);
+    float fx, fy;  // force on a
+    soft_contact(pax - pbx, pay - pby, VMT_LINE_MIN_DIST, d, &fx, &fy);
+    add_force(s, v, ia, fx, fy);
+    add_force(s, v, ib, -fx, -fy);
+    add_torque(s, v, ia, pax - px[ia], pay - py[ia], fx, fy);
+    add_torque(s, v, ib, pbx - px[ib], pby - py[ib], -fx, -fy);
+  } else if (p < d.pair_start[BL + 1]) {
+    // box-line (core.py:2554-2653)
+    const int bi = ia, li = ib;
+    Seg sides[4];
+    box_sides(pose(v, bi), s.width[bi], s.length[bi], sides);
+    float pbx, pby, plx, ply;
+    closest_box_seg(sides, make_seg(pose(v, li), s.length[li]),
+                    &pbx, &pby, &plx, &ply);
+    float ix, iy, d_extra;
+    inner_point(s.hollow[bi], plx, ply, pbx, pby, px[bi], py[bi], &ix, &iy,
+                &d_extra);
+    float fx, fy;  // force on the box
+    soft_contact(ix - plx, iy - ply, VMT_LINE_MIN_DIST + d_extra, d, &fx, &fy);
+    add_force(s, v, bi, fx, fy);
+    add_force(s, v, li, -fx, -fy);
+    add_torque(s, v, bi, pbx - px[bi], pby - py[bi], fx, fy);
+    add_torque(s, v, li, plx - px[li], ply - py[li], -fx, -fy);
+  } else {
+    // box-box (core.py:2655-2786)
+    Seg sa[4], sb[4];
+    box_sides(pose(v, ia), s.width[ia], s.length[ia], sa);
+    box_sides(pose(v, ib), s.width[ib], s.length[ib], sb);
+    float pax, pay, pbx, pby;
+    closest_box_box(sa, sb, &pax, &pay, &pbx, &pby);
+    float iax, iay, da, ibx, iby, db;
+    inner_point(s.hollow[ia], pbx, pby, pax, pay, px[ia], py[ia], &iax, &iay,
+                &da);
+    inner_point(s.hollow[ib], pax, pay, pbx, pby, px[ib], py[ib], &ibx, &iby,
+                &db);
+    float fx, fy;  // force on a
+    soft_contact(iax - ibx, iay - iby, da + db + VMT_LINE_MIN_DIST, d, &fx,
+                 &fy);
+    add_force(s, v, ia, fx, fy);
+    add_force(s, v, ib, -fx, -fy);
+    add_torque(s, v, ia, pax - px[ia], pay - py[ia], fx, fy);
+    add_torque(s, v, ib, pbx - px[ib], pby - py[ib], -fx, -fy);
+  }
+}
+
+// Forces, then semi-implicit Euler for entity i of env e (core.py:2860-2908):
+// the lanes' sums added in lane order.
+DEV void integrate(int e, int i, int substep, const Shared& s, const Dims& d) {
+  const int G = d.lanes, NS = env_stride(d), at = e * NS + i;
+  const int C = VMT_WARP * NS;  // from one sum to the next
+  const float* part = s.part + e * NS + i;
+  float cfx = part[0], cfy = part[C], ctq = part[2 * C];
+  for (int l = 1; l < G; ++l) {
+    const float* q = part + l * 3 * C;
+    cfx = cfx + q[0];
+    cfy = cfy + q[C];
+    ctq = ctq + q[2 * C];
+  }
+  const float dt = d.sub_dt;
+  float vx = s.vx[at], vy = s.vy[at], w = s.w[at];
+  float fx = s.bfx[at], fy = s.bfy[at], tq = s.btq[at];
+  // static/kinetic friction (core.py:2054-2073)
+  if (s.lin_fric[i] > 0.0f) {
+    const float speed = safe_norm2(vx, vy);
+    if (speed != 0.0f) {
+      const float fc = s.lin_fric[i] * s.mass[i];
+      fx = fx + -(vx / speed) * fminf(fc, fabsf(vx) / dt * s.mass[i]);
+      fy = fy + -(vy / speed) * fminf(fc, fabsf(vy) / dt * s.mass[i]);
+    }
+  }
+  if (s.ang_fric[i] > 0.0f) {
+    const float aspeed = safe_norm2(w, 0.0f);
+    if (aspeed != 0.0f) {
+      const float tc = s.ang_fric[i] * s.moment[i];
+      tq = tq + -(w / aspeed) * fminf(tc, fabsf(w) / dt * s.moment[i]);
+    }
+  }
+  fx = fx + cfx;
+  fy = fy + cfy;
+  tq = tq + ctq;
+
+  if (s.movable[i]) {
+    if (substep == 0) {
+      const float keep = 1.0f - s.drag[i];
+      vx = vx * keep;
+      vy = vy * keep;
+    }
+    float nvx = vx + fx / s.mass[i] * dt;
+    float nvy = vy + fy / s.mass[i] * dt;
+    const float ms = s.max_speed[i];
+    if (isfinite(ms)) {
+      const float n = safe_norm2(nvx, nvy);
+      if (n > ms) {
+        const float safe = fmaxf(n, 1e-12f);
+        nvx = nvx / safe * ms;
+        nvy = nvy / safe * ms;
+      }
+    }
+    const float vr = s.v_range[i];
+    if (isfinite(vr)) {
+      nvx = fminf(fmaxf(nvx, -vr), vr);
+      nvy = fminf(fmaxf(nvy, -vr), vr);
+    }
+    s.vx[at] = nvx;
+    s.vy[at] = nvy;
+    float npx = s.px[at] + nvx * dt;
+    float npy = s.py[at] + nvy * dt;
+    if (d.has_x_semidim) npx = fminf(fmaxf(npx, -d.x_semidim), d.x_semidim);
+    if (d.has_y_semidim) npy = fminf(fmaxf(npy, -d.y_semidim), d.y_semidim);
+    s.px[at] = npx;
+    s.py[at] = npy;
+  }
+  if (s.rotatable[i]) {
+    if (substep == 0) w = w * (1.0f - s.drag[i]);
+    w = w + tq / s.moment[i] * dt;
+    s.w[at] = w;
+    s.th[at] = s.th[at] + w * dt;
+    trig(s.th[at], s.ct + at, s.st + at, s.cp + at, s.sp + at);
+  }
+}
+
+// Everything one block does for its envs [block * E, block * E + E): the
+// body is a sequence of phases over the block's threads, each ended by a
+// barrier; no thread reads in a phase what another thread writes in it.
+// Thread tid is lane tid / 32 of env tid % 32.  Built as host C++, a phase
+// is a loop over the thread index.
+DEV void block_body(int block, void* smem, const float* __restrict__ pos,
+                    const float* __restrict__ vel,
+                    const float* __restrict__ rot,
+                    const float* __restrict__ ang_vel,
+                    const float* __restrict__ force_a,
+                    const float* __restrict__ torque_a,
+                    const float* __restrict__ dyn_g,
+                    float* __restrict__ out_pos, float* __restrict__ out_vel,
+                    float* __restrict__ out_rot,
+                    float* __restrict__ out_ang_vel, const Tables& t,
+                    const Dims& d) {
+  const Shared s = carve(smem, d);
+  const int N = d.N, G = d.lanes, E = envs_per_block(d), NS = env_stride(d);
+  const int NTH = VMT_WARP * G;  // threads
+  const size_t b0 = (size_t)block * E;
+  const int nE = (int)(d.B - b0 < (size_t)E ? d.B - b0 : E);
+  const int P = n_pairs(d);
+
+  // The static tables, and the envs' state read as the contiguous runs
+  // [b0 N, (b0 + nE) N) of the native layouts, neighbouring threads on
+  // neighbouring words.
+  PHASE_BEGIN
+    for (int i = tid; i < N; i += NTH) {
+      s.movable[i] = t.movable[i];
+      s.rotatable[i] = t.rotatable[i];
+      s.dyn_row[i] = t.dyn_row[i];
+      s.hollow[i] = t.hollow[i];
+      s.mass[i] = t.mass[i];
+      s.moment[i] = t.moment[i];
+      s.drag[i] = t.drag[i];
+      s.max_speed[i] = t.max_speed[i];
+      s.v_range[i] = t.v_range[i];
+      s.radius[i] = t.radius[i];
+      s.length[i] = t.length[i];
+      s.width[i] = t.width[i];
+      s.lin_fric[i] = t.lin_fric[i];
+      s.ang_fric[i] = t.ang_fric[i];
+    }
+    for (int i = tid; i < 2 * N; i += NTH) s.gravity[i] = t.gravity[i];
+    for (int i = tid; i < 2 * P; i += NTH) s.pairs[i] = t.pairs[i];
+    for (int i = tid; i < 3 * d.J; i += NTH)
+      s.joint_idx[i] = t.joint_idx[i];
+    for (int i = tid; i < 6 * d.J; i += NTH)
+      s.joint_geom[i] = t.joint_geom[i];
+    for (int k = tid; k < 2 * nE * N; k += NTH) {
+      const int e = k / (2 * N), r = k - e * 2 * N, at = e * NS + (r >> 1);
+      const float p = pos[b0 * 2 * N + k], v = vel[b0 * 2 * N + k];
+      if (r & 1) {
+        s.py[at] = p;
+        s.vy[at] = v;
+      } else {
+        s.px[at] = p;
+        s.vx[at] = v;
+      }
+    }
+    for (int k = tid; k < nE * N; k += NTH) {
+      const int e = k / N, at = e * NS + (k - e * N);
+      s.th[at] = rot[b0 * N + k];
+      s.w[at] = ang_vel[b0 * N + k];
+    }
+  PHASE_END
+
+  // Forces that stay fixed over the substeps: action force/torque
+  // (landmarks get none; immovable agents masked), then gravity: static
+  // table x mass, plus the per-env dyn_gravity row.
+  PHASE_BEGIN
+    for (int k = tid; k < nE * N; k += NTH) {
+      const int e = k / N, i = k - e * N, at = e * NS + i;
+      const size_t b = b0 + e;
+      float fx = 0.0f, fy = 0.0f, tq = 0.0f;
+      const int j = i - d.n_landmarks;
+      if (j >= 0 && j < d.A) {
+        const size_t ab = b * d.A + j;
+        if (s.movable[i]) {
+          fx = force_a[ab * 2];
+          fy = force_a[ab * 2 + 1];
+        }
+        if (s.rotatable[i]) tq = torque_a[ab];
+      }
+      if (s.movable[i]) {
+        float gx = s.gravity[2 * i] * s.mass[i];
+        float gy = s.gravity[2 * i + 1] * s.mass[i];
+        const int r = s.dyn_row[i];
+        if (r >= 0) {
+          const size_t gb = (b * d.D + r) * 2;
+          gx = gx + dyn_g[gb] * s.mass[i];
+          gy = gy + dyn_g[gb + 1] * s.mass[i];
+        }
+        fx = fx + gx;
+        fy = fy + gy;
+      }
+      s.bfx[at] = fx;
+      s.bfy[at] = fy;
+      s.btq[at] = tq;
+      trig(s.th[at], s.ct + at, s.st + at, s.cp + at, s.sp + at);
+    }
+  PHASE_END
+
+  for (int substep = 0; substep < d.substeps; ++substep) {
+    // Each lane zeroes its own sums, then takes the items l, l + G, ... of
+    // the list (joint constraints, then the pair classes in table order).
+    PHASE_BEGIN
+      const int e = tid % VMT_WARP, l = tid / VMT_WARP;
+      if (e < nE) {
+        const int C = VMT_WARP * NS;
+        float* own = s.part + l * 3 * C + e * NS;
+        for (int i = 0; i < N; ++i) {
+          own[i] = 0.0f;
+          own[C + i] = 0.0f;
+          own[2 * C + i] = 0.0f;
+        }
+        const EnvView v{s.px + e * NS, s.py + e * NS, s.th + e * NS,
+                        s.ct + e * NS, s.st + e * NS, s.cp + e * NS,
+                        s.sp + e * NS, own, own + C, own + 2 * C};
+        for (int k = l; k < d.J + P; k += G) {
+          if (k < d.J)
+            joint_item(k, s, v, d);
+          else
+            pair_item(k - d.J, s, v, d);
+        }
+      }
+    PHASE_END
+    PHASE_BEGIN
+      const int e = tid % VMT_WARP, l = tid / VMT_WARP;
+      if (e < nE)
+        for (int i = l; i < N; i += G) integrate(e, i, substep, s, d);
+    PHASE_END
+  }
+
+  PHASE_BEGIN
+    for (int k = tid; k < 2 * nE * N; k += NTH) {
+      const int e = k / (2 * N), r = k - e * 2 * N, at = e * NS + (r >> 1);
+      out_pos[b0 * 2 * N + k] = (r & 1) ? s.py[at] : s.px[at];
+      out_vel[b0 * 2 * N + k] = (r & 1) ? s.vy[at] : s.vx[at];
+    }
+    for (int k = tid; k < nE * N; k += NTH) {
+      const int e = k / N, at = e * NS + (k - e * N);
+      out_rot[b0 * N + k] = s.th[at];
+      out_ang_vel[b0 * N + k] = s.w[at];
+    }
+  PHASE_END
+}
+
+// What the kernel takes (host and device): at most VMT_MAX_ENTITIES
+// entities, lanes a power of two up to VMT_MAX_LANES, a block's shared
+// memory within the card's.
+HD bool dims_ok(const Dims& d) {
+  return d.N <= VMT_MAX_ENTITIES && d.N > 0 && d.B > 0 && d.lanes >= 1 &&
+         d.lanes <= VMT_MAX_LANES && (d.lanes & (d.lanes - 1)) == 0 &&
+         shared_bytes(d) <= VMT_MAX_SMEM_BYTES;
+}
+
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(VMT_THREADS)
+__global__ void __launch_bounds__(VMT_WARP * VMT_MAX_LANES, VMT_MIN_BLOCKS)
 physics_step_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
                     const float* __restrict__ rot,
                     const float* __restrict__ ang_vel,
@@ -642,14 +851,19 @@ physics_step_kernel(const float* __restrict__ pos, const float* __restrict__ vel
                     const float* __restrict__ dyn_g, float* __restrict__ out_pos,
                     float* __restrict__ out_vel, float* __restrict__ out_rot,
                     float* __restrict__ out_ang_vel, Tables t, Dims d) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= d.B) return;
-  physics_step_one(b, pos, vel, rot, ang_vel, force_a, torque_a, dyn_g,
-                   out_pos, out_vel, out_rot, out_ang_vel, t, d);
+  extern __shared__ float4 smem4[];
+  block_body(blockIdx.x, smem4, pos, vel, rot, ang_vel, force_a, torque_a,
+             dyn_g, out_pos, out_vel, out_rot, out_ang_vel, t, d);
 }
 #endif
 
 }  // namespace
+
+// A block's shared memory for these Dims (bytes), for the wrapper and the
+// tests; 0 if the kernel does not take them.
+extern "C" int vmt_physics_smem_bytes(const Dims* d) {
+  return dims_ok(*d) ? shared_bytes(*d) : 0;
+}
 
 // Plain C entry point, loaded with ctypes.  Every tensor pointer is a
 // device pointer to a contiguous tensor the caller has checked; `t` and `d`
@@ -657,25 +871,35 @@ physics_step_kernel(const float* __restrict__ pos, const float* __restrict__ vel
 // finalize.  The launch goes on `stream` (PyTorch's current stream).
 // Returns cudaGetLastError() after the launch, 0 on success; it does not
 // synchronise.  Built as host C++, the pointers are host pointers, the
-// envs run in a loop and `stream` is not read.
+// blocks run one after the other and `stream` is not read.
 extern "C" int vmt_physics_step(
     const float* pos, const float* vel, const float* rot, const float* ang_vel,
     const float* force_a, const float* torque_a, const float* dyn_g,
     float* out_pos, float* out_vel, float* out_rot, float* out_ang_vel,
     const Tables* t, const Dims* d, void* stream) {
+  const int blocks = (d->B + VMT_WARP - 1) / VMT_WARP;
 #ifdef __CUDACC__
-  if (d->N > VMT_MAX_ENTITIES || d->B <= 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (d->B + VMT_THREADS - 1) / VMT_THREADS;
-  physics_step_kernel<<<blocks, VMT_THREADS, 0, (cudaStream_t)stream>>>(
+  if (!dims_ok(*d)) return (int)cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        physics_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        VMT_MAX_SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  physics_step_kernel<<<blocks, VMT_WARP * d->lanes, shared_bytes(*d),
+                        (cudaStream_t)stream>>>(
       pos, vel, rot, ang_vel, force_a, torque_a, dyn_g, out_pos, out_vel,
       out_rot, out_ang_vel, *t, *d);
   return (int)cudaGetLastError();
 #else
   (void)stream;
-  if (d->N > VMT_MAX_ENTITIES || d->B <= 0) return 1;
-  for (int b = 0; b < d->B; ++b)
-    physics_step_one(b, pos, vel, rot, ang_vel, force_a, torque_a, dyn_g,
-                     out_pos, out_vel, out_rot, out_ang_vel, *t, *d);
+  if (!dims_ok(*d)) return 1;
+  std::vector<float> smem((shared_bytes(*d) + 3) / 4);
+  for (int block = 0; block < blocks; ++block)
+    block_body(block, smem.data(), pos, vel, rot, ang_vel, force_a, torque_a,
+               dyn_g, out_pos, out_vel, out_rot, out_ang_vel, *t, *d);
   return 0;
 #endif
 }

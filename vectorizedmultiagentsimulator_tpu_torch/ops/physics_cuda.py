@@ -12,12 +12,16 @@ Replaces the JAX package's Pallas kernel
   ``torch.autograd.Function`` whose backward re-runs ``step_plain`` under
   autograd, as the JAX package's ``custom_vjp`` re-runs its jnp core;
 * ``LAUNCHES``: the number of kernel launches, counted where the kernel is
-  launched and nowhere else.
+  launched and nowhere else;
+* ``lane_group(world)``: the threads that step one env (a power of two up
+  to 8), chosen at finalize from the world's weighted pair cost, and
+  ``lanes(world, G)``, which forces another for a comparison.
 
 The kernel is built at first use by :mod:`.cuda_build`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 from typing import NamedTuple, Optional, Tuple
@@ -61,9 +65,54 @@ def step_supported(world) -> bool:
     cons = world._ordered_constraints
     if any(c.inferred_rotation for c in cons):
         return False
+    return pair_cost(world) * world._substeps <= 2048
+
+
+# Weighted pair cost a lane takes before the group widens past 2, and the
+# narrowest and widest groups (VMT_MAX_LANES: warps a block).  Measured on
+# the H100 over 1, 2, 4 and 8 lanes on the nine stepping paths (PERF.md
+# section 6): 2 lanes beat 1 everywhere (a block of one warp leaves the SM
+# short of warps), and 8 beat 4 only on the two heaviest worlds.
+COST_PER_LANE = 12
+MIN_LANES = 2
+MAX_LANES = 8  # VMT_MAX_LANES: warps a block
+BLOCK_ENVS = 32  # VMT_WARP: envs a block, one a thread of each warp
+MAX_SMEM_BYTES = 232448  # VMT_MAX_SMEM_BYTES
+
+
+def pair_cost(world) -> int:
+    """The JAX kernel's weighted size of one substep: ``PAIR_WEIGHTS`` per
+    pair, plus 2 a joint constraint."""
     cost = sum(w * len(world._pairs[c]) for c, w in PAIR_WEIGHTS.items())
-    cost += 2 * len(cons)
-    return cost * world._substeps <= 2048
+    return cost + 2 * len(world._ordered_constraints)
+
+
+def smem_bytes(n_entities: int, n_pairs: int, n_joints: int,
+               lanes: int) -> int:
+    """A block's shared memory in csrc/physics_step.cu (``shared_bytes``):
+    the tables, ``BLOCK_ENVS`` envs' state (13 fields: pose, velocities,
+    the fixed forces, cos and sin of the rotation and of it + pi/2) at an
+    odd stride, and each lane's force and torque sums for each env."""
+    n, envs, ns = n_entities, BLOCK_ENVS, n_entities | 1
+    ints = 4 * n + 2 * n_pairs + 3 * n_joints
+    floats = 12 * n + 6 * n_joints + 13 * envs * ns + envs * lanes * 3 * ns
+    return 4 * (ints + floats)
+
+
+def lane_group(world) -> int:
+    """Threads an env for ``world``: ``pair_cost // COST_PER_LANE`` rounded
+    down to a power of two between ``MIN_LANES`` and ``MAX_LANES`` (2 for
+    transport's 14 and buzz_wire's 23, 8 for joint_passage's 113 and
+    football 5v5's 165), narrowed until a block's state fits its shared
+    memory."""
+    joints = len(world._ordered_constraints)
+    pairs = sum(len(world._pairs[c]) for c in KERNEL_CLASSES)
+    want = min(MAX_LANES, max(MIN_LANES, pair_cost(world) // COST_PER_LANE))
+    lanes = 1 << (want.bit_length() - 1)
+    while lanes > 1 and smem_bytes(world._n_entities, pairs, joints,
+                                   lanes) > MAX_SMEM_BYTES:
+        lanes //= 2
+    return lanes
 
 
 def stacked_dyn_gravity(world, extras) -> torch.Tensor:
@@ -119,7 +168,7 @@ class _Dims(ctypes.Structure):
         ("sub_dt", _F), ("contact_margin", _F), ("collision_force", _F),
         ("joint_force", _F), ("torque_constraint_force", _F),
         ("has_x_semidim", _I), ("has_y_semidim", _I), ("x_semidim", _F),
-        ("y_semidim", _F),
+        ("y_semidim", _F), ("lanes", _I),
     ]
 
 
@@ -147,8 +196,9 @@ def _library():
 
 
 def kernel_tables(world) -> KernelTables:
-    """The kernel's static arguments for ``world``: the world's float32
-    device tables, int32 copies of the flags, every class's pairs packed
+    """The kernel's static arguments for ``world``: its lane group, the
+    world's float32 device tables, int32 copies of the flags, every class's
+    pairs packed
     into one int32 ``[P, 2]`` table in ``KERNEL_CLASSES`` order, with the
     row where each class starts, and the joint constraints in the plain
     version's order as an int32 ``[J, 3]`` table (ia, ib, rotate) and a
@@ -196,9 +246,23 @@ def kernel_tables(world) -> KernelTables:
         world._torque_constraint_force,
         int(world._x_semidim is not None), int(world._y_semidim is not None),
         float(world._x_semidim or 0.0), float(world._y_semidim or 0.0),
+        lane_group(world),
     )
     addresses = (ctypes.addressof(tables), ctypes.addressof(dims))
     return KernelTables(tensors, (tables, dims), addresses)
+
+
+@contextlib.contextmanager
+def lanes(world, group: int):
+    """Step ``world``'s kernel with ``group`` threads an env inside the
+    block (phase 2 and the tests hold every group to the plain version);
+    the group chosen at finalize comes back on exit."""
+    dims = world._kernel_tables.structs[1]
+    chosen, dims.lanes = dims.lanes, group
+    try:
+        yield
+    finally:
+        dims.lanes = chosen
 
 
 def _check(name, x: torch.Tensor, shape, device):

@@ -12,10 +12,11 @@ Replaces the JAX package's Pallas kernel
   entropy term in the discrete backward).  bf16 operands are rounded and
   multiplied in float32, so the result does not depend on a bf16 matrix
   product;
-* ``update_supported(spec)``: whether the kernel takes a spec (its weights,
-  gradient sums and the smallest tile of samples must fit a block's shared
-  memory, which holds up to hidden 128 or so); a trainer asked for the
-  kernel with a spec it does not take raises when it is built;
+* ``update_supported(spec)``: whether the kernel takes a spec: a trunk too
+  wide for its gradient sums (from about hidden 160), then for its bf16
+  weights (from about 260), to share a block's shared memory keeps them in
+  device memory; only a trunk whose activation tiles alone overflow a
+  block (past hidden 1,040 at obs_d 15) is refused;
 * ``minibatch_update``: the wrapper.  On CUDA tensors it launches the kernel
   or raises; on CPU tensors it runs ``minibatch_update_plain``.  It returns
   gradients and nothing differentiates through it, so it is no
@@ -24,7 +25,8 @@ Replaces the JAX package's Pallas kernel
   the kernel is launched and nowhere else.
 
 The kernel's head shape is static, so the source is compiled once per
-``(obs_d, act_w, hidden, n_logits, tile)`` at first use by :mod:`.cuda_build`;
+``(obs_d, act_w, hidden, n_logits, layout(spec))`` at first use by
+:mod:`.cuda_build`;
 ``n``, ``mb``, ``lb`` and the coefficients are runtime fields of a struct
 filled once per spec.
 """
@@ -44,9 +46,12 @@ LAUNCHES = 0
 SOURCE = os.path.join(cuda_build.CSRC, "ppo_update.cu")
 
 # csrc/ppo_update.cu: the tile sizes (samples) it can be compiled for,
-# largest first, and the shared memory a block may use on sm_90.
-TILES = (128, 64, 32, 16)
+# largest first; the shared memory a block may use on sm_90, and an SM's
+# (a block reserves 1 KB more).
+TILES = (64, 32, 16)
 MAX_SMEM_BYTES = 232448
+SM_SMEM_BYTES = 233472
+MAX_BLOCKS_PER_SM = 2  # __launch_bounds__(256, 2)
 
 _LOG_2PI = float(math.log(2.0 * math.pi))
 _ENT_C = float(0.5 * math.log(2.0 * math.pi) + 0.5)  # per-dim Gaussian ent.
@@ -291,50 +296,82 @@ def flat_size(spec: PPOUpdateSpec) -> int:
     return sum(a * b for a, b in param_shapes(spec)) + 3
 
 
-def smem_bytes(spec: PPOUpdateSpec, tile: int) -> int:
+def _up16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def smem_bytes(spec: PPOUpdateSpec, tile: int, global_sums: bool,
+               global_weights: bool = False) -> int:
     """Shared memory of one block with ``tile`` samples a tile (the layout
-    of csrc/ppo_update.cu: weights, gradient sums, then the tile's rows at
-    a stride of ``tile + 4`` floats)."""
+    of csrc/ppo_update.cu): the trunk weights as bf16 rows of ``up16(hidden)
+    + 8`` unless ``global_weights``, the heads' weights and biases, the
+    gradient sums unless ``global_sums``, two raw tiles of ``max(D,
+    up16(obs_d))`` rows of ``tile + 8``, three activation tiles
+    ``[tile][up16(hidden) + 8]`` and the head's rows at a stride of ``tile +
+    4``."""
     od, aw, H, hw = spec.obs_d, spec.act_w, spec.hidden, spec.mask_w
-    weights = (2 * _up4(od * H) + _up4(H * H) + _up4(H * hw) + 4 * _up4(H)
-               + 2 * _up4(hw) + 4)
-    rows = od + 3 * H + 2 * hw + aw + 7 + (0 if spec.discrete else aw)
-    return 4 * (weights + _up4(flat_size(spec)) + rows * (tile + 4))
+    hp, odp = _up16(H), _up16(od)
+    weights = 0 if global_weights else 2 * (2 * odp + hp) * (hp + 8)
+    floats = _up4(H * hw) + 4 * hp + 2 * _up4(hw) + 4
+    if not global_sums:
+        floats += _up4(flat_size(spec))
+    floats += 2 * max(spec.d, odp) * (tile + 8) + 3 * tile * (hp + 8)
+    floats += (tile + 4) * (hw + 4 + (0 if spec.discrete else aw))
+    return weights + 4 * floats
+
+
+def layout(spec: PPOUpdateSpec):
+    """``(tile, global_sums, global_weights)`` the kernel is compiled with
+    for ``spec``: everything in shared memory with the largest tile of
+    ``TILES`` that fits (64 samples up to hidden 112, 32 to 144, 16 to
+    160); else the gradient sums in device memory (to hidden 256); else
+    the trunk weights too, read from device memory (to hidden 1,040 at
+    obs_d 15: three fp32 activation tiles of 16 samples must fit a
+    block)."""
+    for global_sums, global_weights in ((False, False), (True, False),
+                                        (True, True)):
+        for tile in TILES:
+            if smem_bytes(spec, tile, global_sums,
+                          global_weights) <= MAX_SMEM_BYTES:
+                return tile, global_sums, global_weights
+    raise ValueError(f"the PPO update kernel does not take {spec}: three"
+                     " activation tiles of 16 samples exceed a block's"
+                     " shared memory; use a smaller hidden size, or"
+                     " fused_update=False for the autograd update")
 
 
 def tile_size(spec: PPOUpdateSpec) -> int:
-    """Samples per tile the kernel is compiled with for ``spec``: the
-    largest of ``TILES`` that fits a block's shared memory (128 up to hidden
-    64 with the heads of the ported scenarios, 16 or 32 at hidden 128); 0
-    if none does."""
-    for tile in TILES:
-        if smem_bytes(spec, tile) <= MAX_SMEM_BYTES:
-            return tile
-    return 0
+    """Samples per tile the kernel is compiled with for ``spec``."""
+    return layout(spec)[0]
+
+
+def blocks_per_sm(spec: PPOUpdateSpec) -> int:
+    """Blocks of the kernel that share an SM's shared memory."""
+    per_block = smem_bytes(spec, *layout(spec)) + 1024
+    return max(1, min(MAX_BLOCKS_PER_SM, SM_SMEM_BYTES // per_block))
 
 
 def update_supported(spec: PPOUpdateSpec) -> bool:
-    """Whether the kernel takes this spec.  Its weights and gradient sums
-    stay in a block's shared memory beside a tile of samples, which holds up
-    to a hidden size of about 128; a wider trunk is refused, where the JAX
-    package's kernel takes any."""
-    return tile_size(spec) > 0
+    """Whether the kernel takes this spec: any whose three fp32 activation
+    tiles of 16 samples fit a block's shared memory (hidden sizes up to
+    1,040 at obs_d 15)."""
+    try:
+        layout(spec)
+    except ValueError:
+        return False
+    return True
 
 
 def require_supported(spec: PPOUpdateSpec) -> None:
-    if not update_supported(spec):
-        raise ValueError(
-            f"the PPO update kernel does not take {spec}: it needs"
-            f" {smem_bytes(spec, TILES[-1])} bytes of shared memory a block,"
-            f" over the card's {MAX_SMEM_BYTES}; use a smaller hidden size,"
-            " or fused_update=False for the autograd update"
-        )
+    layout(spec)
 
 
 def defines(spec: PPOUpdateSpec):
+    tile, global_sums, global_weights = layout(spec)
     return (f"PPO_OD={spec.obs_d}", f"PPO_AW={spec.act_w}",
             f"PPO_H={spec.hidden}", f"PPO_NL={spec.n_logits}",
-            f"PPO_T={tile_size(spec)}")
+            f"PPO_T={tile}", f"PPO_GG={int(global_sums)}",
+            f"PPO_WG={int(global_weights)}")
 
 
 def build(spec: PPOUpdateSpec) -> str:
@@ -371,7 +408,7 @@ def _launcher(spec: PPOUpdateSpec, n: int) -> _Launcher:
         lib = ctypes.CDLL(build(spec))
         if (lib.vmt_ppo_p() != flat_size(spec)
                 or lib.vmt_ppo_smem_bytes() != smem_bytes(spec,
-                                                          tile_size(spec))):
+                                                          *layout(spec))):
             raise RuntimeError(
                 "csrc/ppo_update.cu and ops/ppo_update_cuda.py disagree on"
                 " the kernel's layout"
@@ -428,7 +465,8 @@ def launch(spec: PPOUpdateSpec, packed_fm: Tensor, perm_mb: Tensor,
     launcher = _launcher(spec, n)
     grid = min(
         -(-spec.mb // tile_size(spec)),
-        torch.cuda.get_device_properties(dev).multi_processor_count,
+        blocks_per_sm(spec)
+        * torch.cuda.get_device_properties(dev).multi_processor_count,
     )
     partial = torch.empty((grid, launcher.flat), dtype=torch.float32,
                           device=dev)
