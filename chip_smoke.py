@@ -59,14 +59,23 @@ Phases, one line each:
      traffic@10k from its reset poses (agents on path vertices: the closest
      index and every flag must equal the plain version's), from jittered
      poses, on vertices just before the paths' ends (the short-term path
-     wraps around a loop; exact too) and after 10 steps, and a map '3'
-     world (10 agents) from the same poses, across its entry and exit
-     segments and after 10 steps
+     wraps around a loop; exact too), from poses uniform over the map with
+     random headings and path ids (most agents far from their path, where
+     culling skips most chunks) and after 10 steps, and a map '3' world
+     (10 agents) from the same poses, across its entry and exit segments
+     and after 10 steps; at 1024 envs, poses a margin's width from a chunk's
+     box at each lane group and poses where a path passes near itself (no
+     closest index may move there)
      (torch_helpers.geometry_diff: continuous outputs within 1e-5 +
      1e-5|ref|, a moved index or flipped flag only at a near tie or
-     touch); the neighbour kernel on each of those and on random inputs
-     (nd bit-equal); two launches bit-identical; then each kernel's time
-     (CUDA events and device time), its plain version's and its bound;
+     touch); the pair matrix equal to its transpose; the neighbour kernel
+     on each of those and on random inputs (nd bit-equal); two launches
+     bit-identical; then each kernel's time (CUDA events and device time),
+     its plain version's and its bound (the agent kernel's from the chunks
+     its culling keeps for these inputs, the pair kernel's from the pairs
+     whose boxes meet), with the every-segment bound beside it; then the
+     agent kernel's ms a launch at 4, 8, 16 and 32 lanes an agent, tables
+     through L1 and staged in shared memory, with culling and without;
   3. the main paths: make_env(name, num_envs, device="cuda") for
      transport, simple_spread, navigation, flocking, balance, football
      (5v5, the red team's scripted AI), joint_passage and buzz_wire (the
@@ -119,9 +128,10 @@ compares this checkout's package with another checkout's (for example the
 parent commit unpacked with `git archive` into a gitignored directory) on
 one card: PAIRS (default 10) alternating pairs of processes, each running
 two 100-step rollouts of joint_passage and buzz_wire at 30k envs with the
-physics wrapper's time per call and its kernel's device time, and two
-training iterations of transport@16384 (update and iteration ms); it
-prints each run and a JSON summary.
+physics wrapper's time per call and its kernel's device time, two of
+road_traffic at 10k with the agent-geometry and pair kernels' device time
+a launch, and two training iterations of transport@16384 (update and
+iteration ms); it prints each run and a JSON summary.
 """
 import contextlib
 import json
@@ -156,6 +166,9 @@ CAST_TOL = 1e-5
 # and the training cell it times (update and iteration ms).
 AB_SCENARIOS = ("joint_passage", "buzz_wire")
 AB_TRAIN = ("transport", 16384)
+# And road_traffic@10k: env-steps/s and its agent-geometry and pair
+# kernels' device ms a launch.
+AB_ROAD = ("road_traffic", 10_000)
 # (scenario, envs, agents, obs width, ray-cast launches a step, planner
 # launches a step, road-kernel launches a step: agent geometry, pair,
 # neighbour).  road_traffic runs at 10k envs: the plain version's [B, A, 5,
@@ -223,8 +236,13 @@ CAST_OPS = {"ray": 3, "sphere": 37, "box": 55, "line": 28}
 PLANNER_OPS = {"candidate": 91, "pair": 11}
 # The same for csrc/road_geometry.cu: one segment distance with its running
 # minimum, one strict crossing test, one rectangle (cos, sin, 5 corners),
-# one short-term point, and a neighbour round besides its A compares.
-ROAD_OPS = {"seg": 26, "cross": 29, "rect": 42, "short": 8, "neighbor": 92}
+# the box of an agent's points, one short-term point, a neighbour round
+# besides its A compares; a point's distance to a chunk's box with its
+# compare ("box"), the agent's box against a boundary chunk's (the margin
+# test and the box gap, "gap"), two rectangles' boxes against each other
+# ("meet").
+ROAD_OPS = {"seg": 26, "cross": 29, "rect": 42, "bounds": 16, "short": 8,
+            "neighbor": 92, "box": 13, "gap": 25, "meet": 12}
 # bf16 products with fp32 accumulation in the tensor cores (the same sheet).
 BF16_FLOP_PER_S = 989e12
 # Planner kernel vs plain: a row that picks the plain version's candidate
@@ -741,7 +759,7 @@ def profile_steps(env, actions, on):
     for key, tag in (("physics_step_kernel", "physics"),
                      ("cast_rays_kernel", "raycast"),
                      ("best_positions_kernel", "planner"),
-                     ("agent_geometry_kernel", "agent_geometry"),
+                     ("agent_geometry", "agent_geometry"),
                      ("pair_collisions_kernel", "pair_collisions"),
                      ("neighbor_obs_kernel", "neighbor_obs")):
         named[tag] = sum(e.time_range.elapsed_us() for e in device
@@ -753,7 +771,10 @@ def rate_worker(root):
     """``--rate ROOT``: with the port package found at ROOT, for each
     scenario of AB_SCENARIOS at 30k envs two N_STEPS-step rollouts'
     env-steps/s and the physics wrapper's time per call and its kernel's
-    device time (back-to-back calls from the reset state); then for
+    device time (back-to-back calls from the reset state); for AB_ROAD
+    two rollouts' env-steps/s and the agent-geometry and pair wrappers'
+    time per call and kernels' device time at the state they end in; then
+    for
     AB_TRAIN at the PPOConfig defaults, after one warm-up iteration, two
     iterations' update ms and whole-iteration ms (host clock, each ended by
     a synchronize); one JSON line of {metric: value}."""
@@ -761,7 +782,10 @@ def rate_worker(root):
     import torch
     import vectorizedmultiagentsimulator_tpu_torch as vmt
     from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
-    from vectorizedmultiagentsimulator_tpu_torch.ops import physics_cuda
+    from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        physics_cuda,
+        road_geometry_cuda,
+    )
 
     assert vmt.__file__.startswith(os.path.abspath(root)), vmt.__file__
     out = {}
@@ -781,6 +805,25 @@ def rate_worker(root):
         out[f"{name} physics ms/call"] = call_ms
         out[f"{name} physics device ms"] = dev_ms
         del env, actions, w, inputs, step
+    name, num_envs = AB_ROAD
+    env = vmt.make_env(name, num_envs=num_envs, device="cuda", seed=0)
+    actions = random_actions(env, N_STEPS, seed=7)
+    out[f"{name}@{num_envs} env-steps/s"] = sum(
+        timed_rollout(env, actions) for _ in range(2)) / 2
+    (tables, pos, rot, pid), _ = road_inputs(env)
+    for kernel, call in (
+            ("agent_geometry", lambda: road_geometry_cuda.launch_agent_geometry(
+                tables, True, pos, rot, pid)),
+            ("pair_collisions", lambda: road_geometry_cuda.launch_pair_collisions(
+                tables, pos, rot))):
+        with torch.no_grad():
+            for _ in range(3):
+                call()
+            out[f"{name}@{num_envs} {kernel} ms/call"] = cuda_time_ms(call,
+                                                                      50)
+            out[f"{name}@{num_envs} {kernel} device ms"] = device_ms(
+                call, 20, kernel)
+    del env, actions
     name, num_envs = AB_TRAIN
     _, _, tr = torch_ppo.init_training(name, num_envs, seed=0)
     tr.train_step()
@@ -1314,8 +1357,9 @@ def road_inputs(env):
 def geometry_vs_plain(tables, pos, rot, path_id, label, exact=False):
     """The agent-geometry and pair kernels (with collisions, twice, and
     without) against geometry_plain on the card; with ``exact`` (poses on
-    path vertices) no index may move and no flag flip.  Returns the largest
-    |kernel - plain| of each kernel's outputs."""
+    path vertices) no index may move and no flag flip, with ``exact ==
+    "index"`` (poses where culling is tight) no index may move.  Returns
+    the largest |kernel - plain| of each kernel's outputs."""
     import torch
     from torch_helpers import geometry_diff
     from vectorizedmultiagentsimulator_tpu_torch.ops import road_geometry as rg
@@ -1332,6 +1376,7 @@ def geometry_vs_plain(tables, pos, rot, path_id, label, exact=False):
         report = geometry_diff(tables, pos, rot, path_id, got, ref)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         same = same and all(torch.equal(a, b) for a, b in zip(got, bare))
+        symmetric = torch.equal(got[9], got[9].transpose(1, 2))
 
         def err(idx):
             return max(float((got[i] - ref[i]).abs().max()) for i in idx)
@@ -1344,14 +1389,18 @@ def geometry_vs_plain(tables, pos, rot, path_id, label, exact=False):
         f" pair {pair_err:.3e}; closest index moved in {report['moved']}"
         f" rows, flags flipped {report['flipped']}, of those not near a tie"
         f" or touch (with out-of-tolerance elements) {report['bad']}; repeat"
-        f" and collision-free launches bit-identical: {same}")
-    exact_ok = not exact or (report["moved"] == 0 and report["flipped"] == 0
-                             and torch.equal(got[0], ref[0])
-                             and torch.equal(got[4], ref[4]))
-    if report["bad"] or not same or not exact_ok:
+        f" and collision-free launches bit-identical: {same}; pair matrix"
+        f" equal to its transpose: {symmetric}")
+    exact_ok = not exact or report["moved"] == 0
+    if exact is True:
+        exact_ok = exact_ok and (report["flipped"] == 0
+                                 and torch.equal(got[0], ref[0])
+                                 and torch.equal(got[4], ref[4]))
+    if report["bad"] or not same or not exact_ok or not symmetric:
         raise AssertionError(
             f"{label}: road geometry kernels disagree with plain ({report},"
-            f" repeat identical {same}, exact {exact_ok})")
+            f" repeat identical {same}, exact {exact_ok}, symmetric"
+            f" {symmetric})")
     return agent_err, pair_err
 
 
@@ -1383,18 +1432,105 @@ def neighbors_vs_plain(args, label):
     return report["max_abs_err"]
 
 
+def culled_work(tables, pos, rot, path_id, lanes):
+    """What csrc/road_geometry.cu's chunk rule leaves of the agent kernel's
+    work (with collisions) for these poses, reckoned from the chunk boxes
+    at ``lanes`` with the kernel's rule: for each polyline the chunk whose
+    box is nearest the agent's centre gives D_v, the least distance of
+    each point v over its segments; on the centre line a chunk is kept
+    when its box lies within D + 1e-5 + 1e-4 of the centre, on a boundary
+    when the agent's box meets it (both grown by 1e-4) or some point v
+    lies within D_v + 1e-5 + 1e-4 of it (tested only where the agent's box
+    does).  Returns [B, A] counts: "seg_c" and "seg_b", the real segments
+    of the kept chunks of the centre line and of both boundaries; "box"
+    and "gap", the box tests (a few decisions that differ at the margin
+    from the kernel's do not matter to a count)."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.ops import road_geometry as rg
+    from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        road_geometry_cuda as rgc,
+    )
+
+    tol = 1e-5 + 1e-4
+    boxes = rgc.lane_boxes(tables, lanes)
+    B, A = pos.shape[:2]
+    N, G = B * A, lanes
+    pid = path_id.reshape(N).long()
+    verts = rg.get_rectangle_vertices(pos, rot, tables.width, tables.length)
+    pts = torch.cat([pos[:, :, None], verts[..., :4, :]], dim=2).reshape(
+        N, 5, 2)
+    rbox = torch.cat([pts.amin(1), pts.amax(1)], dim=-1)  # [N, 4]
+    out = {k: torch.zeros(N, device=pos.device)
+           for k in ("seg_c", "seg_b", "box", "gap")}
+    C = boxes.shape[2]
+    c_idx = torch.arange(C, device=pos.device)
+    for r, (table, counts) in enumerate((
+            (tables.center, tables.n_points), (tables.left, tables.n_left),
+            (tables.right, tables.n_right))):
+        n_seg = torch.clamp_min(counts[pid].long() - 1, 1)  # [N]
+        nch = (n_seg + G - 1) // G
+        valid = c_idx[None] < nch[:, None]  # [N, C]
+        bx = boxes[pid, r]  # [N, C, 4]
+        p = pts[:, :1] if r == 0 else pts  # [N, V, 2]
+        x, y = p[..., 0, None], p[..., 1, None]
+        dx = torch.clamp_min(torch.maximum(bx[:, None, :, 0] - x,
+                                           x - bx[:, None, :, 2]), 0)
+        dy = torch.clamp_min(torch.maximum(bx[:, None, :, 1] - y,
+                                           y - bx[:, None, :, 3]), 0)
+        L = torch.sqrt(dx * dx + dy * dy).masked_fill(~valid[:, None],
+                                                      torch.inf)
+        c0 = L[:, 0].argmin(-1)  # [N]
+        first = c0 * G
+        idx = torch.clamp(first[:, None] + torch.arange(
+            G + 1, device=pos.device)[None], max=table.shape[1] - 1)
+        rows = table[pid[:, None], idx]  # [N, G + 1, 2]
+        n_pts = torch.clamp(n_seg - first, max=G) + 1
+        D, _ = rg.get_perpendicular_distances(
+            p, rows[:, None].expand(-1, p.shape[1], -1, -1),
+            n_pts[:, None].expand(-1, p.shape[1]))
+        lim = (D + tol)[..., None]  # [N, V, 1]
+        is_c0 = c_idx[None] == c0[:, None]
+        if r == 0:
+            keep = (L[:, 0] <= lim[:, 0]) | is_c0
+            out["box"] += 2 * nch
+        else:
+            meet = ((rbox[:, None, 0] - 1e-4 <= bx[..., 2] + 1e-4)
+                    & (bx[..., 0] - 1e-4 <= rbox[:, None, 2] + 1e-4)
+                    & (rbox[:, None, 1] - 1e-4 <= bx[..., 3] + 1e-4)
+                    & (bx[..., 1] - 1e-4 <= rbox[:, None, 3] + 1e-4))
+            gx = torch.clamp_min(torch.maximum(bx[..., 0] - rbox[:, None, 2],
+                                               rbox[:, None, 0] - bx[..., 2]),
+                                 0)
+            gy = torch.clamp_min(torch.maximum(bx[..., 1] - rbox[:, None, 3],
+                                               rbox[:, None, 1] - bx[..., 3]),
+                                 0)
+            near = torch.sqrt(gx * gx + gy * gy) <= lim.amax(1)
+            tested = valid & ~is_c0 & ~meet & near
+            keep = is_c0 | (valid & (meet | (tested
+                                             & (L <= lim).any(1))))
+            out["box"] += nch + 5 * tested.sum(-1)
+            out["gap"] += nch - 1
+        segs = torch.clamp(n_seg[:, None] - c_idx[None] * G, 0, G)
+        out["seg_c" if r == 0 else "seg_b"] += (segs * (keep & valid)).sum(-1)
+    return {k: v.reshape(B, A) for k, v in out.items()}
+
+
 def road_bounds_ms(tables, pos, rot, path_id, neighbor_args):
     """The least time of each road kernel's call on the H100 for these
-    inputs, (ms, "bytes" | "operations") each: every operand read once and
-    every output written once, the path tables once; the operations
-    (ROAD_OPS) this data needs.  Agent geometry: every real centre-line
-    segment, then those up to the first within 1e-5 of the least distance,
-    5 points against every real segment of each boundary and, with
-    collisions, 4 edges against each of them where no edge crosses (one
-    test where one does, which only lowers the bound), 8 entry/exit tests
-    on paths that are not loops.  Pair: each agent's rectangle and, per
-    other agent, its rectangle and 16 tests (1 where they cross).
-    Neighbour: k rounds of A compares and a neighbour's work."""
+    inputs, (ms, "bytes" | "operations") each, and for the agent and pair
+    kernels also the every-segment count's (``all_segments``): every
+    operand read once and every output written once, the path tables and
+    chunk boxes once; the operations (ROAD_OPS) this data needs.  Agent
+    geometry: the rectangle and its box, K short-term points, the box tests
+    and the real segments of the chunks culled_work keeps at the kernel's
+    lane group, each centre-line segment's distance once, 5 points' against
+    each kept boundary segment and, with collisions, 4 edges' crossing
+    tests (one test where an edge crosses, which only lowers the bound), 8
+    entry/exit tests on paths that are not loops; every real segment in
+    the every-segment count.  Pair: each agent's rectangle and its box,
+    each unordered pair's box test, and 16 crossing tests (1 where they
+    cross) where the boxes meet; every pair's 16 in the every-segment
+    count.  Neighbour: k rounds of A compares and a neighbour's work."""
     import torch
     from vectorizedmultiagentsimulator_tpu_torch.ops import road_geometry as rg
 
@@ -1402,43 +1538,71 @@ def road_bounds_ms(tables, pos, rot, path_id, neighbor_args):
     B, A = pos.shape[:2]
     with torch.no_grad():
         pid = path_id.long()
-        n = tables.n_points[pid].long()
-        seg_c = torch.clamp_min(n - 1, 1)
-        _, first_plus_1 = rg.get_perpendicular_distances(
-            pos, tables.center[pid], tables.n_points[pid])
-        seg_b = (torch.clamp_min(tables.n_left[pid].long() - 1, 1)
-                 + torch.clamp_min(tables.n_right[pid].long() - 1, 1))
         ref = rg.geometry_plain(tables, True, pos, rot, path_id)
         lane = ref[6] > 0.5
-        ops = ((seg_c + first_plus_1) * O["seg"] + seg_b * 5 * O["seg"]
-               + torch.where(lane, 1, seg_b * 4) * O["cross"] + O["rect"]
-               + tables.K * O["short"])
+        work = culled_work(tables, pos, rot, path_id, tables.struct.lanes)
+        fixed = O["rect"] + O["bounds"] + tables.K * O["short"]
         if tables.entry_exit:
-            ops = ops + (~tables.is_loop[pid]).long() * 8 * O["cross"]
+            fixed = fixed + (~tables.is_loop[pid]).long() * 8 * O["cross"]
+        ops = (work["seg_c"] * O["seg"] + work["seg_b"] * 5 * O["seg"]
+               + torch.where(lane, 1, work["seg_b"] * 4) * O["cross"]
+               + work["box"] * O["box"] + work["gap"] * O["gap"] + fixed)
+        seg_c = torch.clamp_min(tables.n_points[pid].long() - 1, 1)
+        seg_b = (torch.clamp_min(tables.n_left[pid].long() - 1, 1)
+                 + torch.clamp_min(tables.n_right[pid].long() - 1, 1))
+        ops_all = (seg_c * O["seg"] + seg_b * 5 * O["seg"]
+                   + torch.where(lane, 1, seg_b * 4) * O["cross"] + fixed)
         table_bytes = sum(x.numel() * x.element_size()
                           for x in tables.kernel_tensors)
-        agent = bound(B * A * (16 + 4 * (1 + 5 + 5 + 1 + 2 * tables.K + 3))
-                      + table_bytes, float(ops.sum()))
-        hits = int(ref[9].sum())
-        pair_ops = (B * A * A * O["rect"]
-                    + O["cross"] * (16 * (B * A * (A - 1) - hits) + hits))
-        pair = bound(B * A * (12 + 4 * (10 + A)), pair_ops)
+        moved = B * A * (16 + 4 * (1 + 5 + 5 + 1 + 2 * tables.K + 3))
+        agent = bound(moved + table_bytes, float(ops.sum()))
+        agent_all = bound(moved + table_bytes, float(ops_all.sum()))
+        # Each unordered pair once: the upper triangle.
+        upper = torch.triu(torch.ones((A, A), dtype=torch.bool,
+                                      device=pos.device), diagonal=1)
+        hits = int((ref[9] > 0.5)[:, upper].sum())
+        v = ref[5][..., :4, :]
+        lo, hi = v.amin(2), v.amax(2)  # [B, A, 2]
+        meet = ((lo[:, :, None] - 1e-4 <= hi[:, None] + 1e-4)
+                & (lo[:, None] - 1e-4 <= hi[:, :, None] + 1e-4)).all(-1)
+        met = int(meet[:, upper].sum())
+        n_pairs = B * A * (A - 1) // 2
+        pair_bytes = B * A * (12 + 4 * (10 + A))
+        pair = bound(pair_bytes, B * A * (O["rect"] + O["bounds"])
+                     + n_pairs * O["meet"]
+                     + O["cross"] * (16 * (met - hits) + hits))
+        pair_all = bound(pair_bytes, B * A * O["rect"]
+                         + O["cross"] * (16 * (n_pairs - hits) + hits))
     k = neighbor_args[1]
     neighbor = bound(B * A * (20 + 4 * A) + B * A * k * 14 * 4,
                      B * A * (3 + k * (A + O["neighbor"])))
-    return {"agent_geometry": agent, "pair_collisions": pair,
-            "neighbor_obs": neighbor}
+    log(f"[2] road bounds at B={B} A={A}: agent geometry, per agent, kept"
+        f" segments {float(work['seg_c'].float().mean()):.2f} of"
+        f" {float(seg_c.float().mean()):.2f} on the centre line and"
+        f" {float(work['seg_b'].float().mean()):.2f} of"
+        f" {float(seg_b.float().mean()):.2f} on the boundaries, box tests"
+        f" {float((work['box'] + work['gap']).float().mean()):.2f},"
+        f" {float(ops.float().mean()):.1f} operations (every segment"
+        f" {float(ops_all.float().mean()):.1f}); pair: {met} of {n_pairs}"
+        f" pairs' boxes meet, {hits} cross")
+    return {"agent_geometry": agent + (agent_all[0],),
+            "pair_collisions": pair + (pair_all[0],),
+            "neighbor_obs": neighbor + (None,)}
 
 
 def road_phase_2(errs):
     """Phase 2 for the road kernels: the cases of the docstring; returns
-    {kernel: (ms, plain_ms, bound_ms, bound_by)} at road_traffic@10k after
-    10 steps, the main path's inputs."""
-    import numpy as np
+    {kernel: (ms, plain_ms, bound_ms, bound_by, bound_all_segments_ms,
+    device_ms)} at road_traffic@10k after 10 steps, the main path's inputs,
+    and the agent kernel's ms a launch at each layout, {(lanes, staged,
+    cull): (CUDA events ms, device ms)}."""
     import torch
     from torch_helpers import (
+        poses_at_chunk_margins,
         poses_at_path_ends,
         poses_near_path_ends,
+        poses_near_self,
+        random_map_poses,
         random_neighbor_inputs,
     )
     from vectorizedmultiagentsimulator_tpu_torch.ops import road_geometry as rg
@@ -1471,6 +1635,25 @@ def road_phase_2(errs):
             errs["geometry"].append(geometry_vs_plain(
                 tables, epos, erot, pid,
                 f"{label} across entry and exit segments"))
+        errs["geometry"].append(geometry_vs_plain(
+            *(tables,) + random_map_poses(tables, envs, tables.A, seed=7),
+            f"{label} random-map poses (uniform over the map, random"
+            f" headings and path ids)"))
+        if not tag:
+            # Where culling is tight, at each lane group's chunks: a
+            # point on a chunk's box or a few margins from it, and a path
+            # passing near itself; no closest index may move.
+            for lanes in rgc.LANE_GROUPS:
+                with rgc.agent_variant(tables, lanes=lanes):
+                    errs["geometry"].append(geometry_vs_plain(
+                        *(tables,) + poses_at_chunk_margins(
+                            tables, lanes, 1024, tables.A, seed=lanes),
+                        f"{label} {lanes} lanes, poses at chunk margins",
+                        exact="index"))
+            errs["geometry"].append(geometry_vs_plain(
+                *(tables,) + poses_near_self(tables, 1024, tables.A, seed=9),
+                f"{label} poses where a path passes near itself",
+                exact="index"))
         for a in random_actions(env, 10, seed=5):
             env.step(a)
         (tables, pos, rot, pid), nargs = road_inputs(env)
@@ -1487,9 +1670,11 @@ def road_phase_2(errs):
         (20, 2, 0.08, 0.04, *inputs), f"random inputs at {envs}"))
 
     tables, pos, rot, pid, nargs = main_inputs
+    agent_call = lambda: rgc.launch_agent_geometry(tables, True, pos, rot,
+                                                   pid)
     calls = {
         "agent_geometry": (
-            lambda: rgc.launch_agent_geometry(tables, True, pos, rot, pid),
+            agent_call,
             lambda: rg.agent_geometry_plain(tables, True, pos, rot, pid)),
         "pair_collisions": (
             lambda: rgc.launch_pair_collisions(tables, pos, rot),
@@ -1505,14 +1690,41 @@ def road_phase_2(errs):
                 call()
                 plain()
             ms = cuda_time_ms(call, 50)
-            dev_ms = device_ms(call, 10, f"{name}_kernel")
+            dev_ms = device_ms(call, 10, name)
             plain_ms = cuda_time_ms(plain, 10)
-            bound_ms, by = bounds[name]
-            times[name] = (ms, plain_ms, bound_ms, by)
+            bound_ms, by, all_ms = bounds[name]
+            times[name] = (ms, plain_ms, bound_ms, by, all_ms, dev_ms)
             log(f"[2] {name} kernel at road_traffic@{envs} after 10 steps:"
                 f" {ms:.5f} ms a call (CUDA events), {dev_ms:.5f} ms device,"
-                f" plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({by})")
-    return times
+                f" plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({by})"
+                + ("" if all_ms is None else
+                   f", every-segment bound {all_ms:.5f} ms"))
+        # The agent kernel's layouts at the same inputs: ms a launch (CUDA
+        # events over 30 back-to-back launches, and the profiler's device
+        # time, which can drop events) at each lane group, tables through
+        # L1 and staged in shared memory, with chunk culling and without
+        # (the lane groups alone).
+        layouts = {}
+        for lanes in rgc.LANE_GROUPS:
+            for staged in (False, True):
+                for cull in (True, False):
+                    with rgc.agent_variant(tables, lanes=lanes, cull=cull,
+                                           staged=staged):
+                        for _ in range(2):
+                            agent_call()
+                        layouts[(lanes, staged, cull)] = (
+                            cuda_time_ms(agent_call, 30),
+                            device_ms(agent_call, 10, "agent_geometry"))
+            log(f"[2] agent_geometry kernel at road_traffic@{envs} after 10"
+                f" steps, {lanes} lanes an agent, ms a launch (CUDA events /"
+                f" device): tables through L1"
+                f" %.5f / %.5f culled, %.5f / %.5f every segment; staged in"
+                f" shared memory %.5f / %.5f culled, %.5f / %.5f every"
+                f" segment" % (layouts[(lanes, False, True)]
+                               + layouts[(lanes, False, False)]
+                               + layouts[(lanes, True, True)]
+                               + layouts[(lanes, True, False)]))
+    return times, layouts
 
 
 def main():
@@ -1770,7 +1982,7 @@ def main():
         planner_errs, planner_real)
     del planner_real
     road_errs = {"geometry": [], "neighbor_obs": []}
-    road_times = road_phase_2(road_errs)
+    road_times, road_layouts = road_phase_2(road_errs)
     ppo_errs = []
     ppo_t, ppo_wide = ppo_phase_2(ppo_errs)
 
@@ -1923,11 +2135,24 @@ def main():
             "launches": launches[name],
             "max_abs_err": err,
             "ms": road_times[name][0],
+            "device_ms": road_times[name][5],
             "plain_ms": road_times[name][1],
             "bound_ms": road_times[name][2],
             "bound_by": road_times[name][3],
             # No single PyTorch call computes road_traffic's geometry.
             "library_ms": None,
+            **({} if road_times[name][4] is None else
+               {"bound_all_segments_ms": road_times[name][4]}),
+            **({} if name != "agent_geometry" else {
+                "lanes": road_geometry_cuda.AGENT_LANES,
+                "staged": road_geometry_cuda.STAGED,
+                # ms a launch (CUDA events, device) at each (lanes,
+                # tables, culling) layout.
+                "layouts_ms": {
+                    f"{g} lanes, {'staged' if st else 'L1'},"
+                    f" {'culled' if c else 'every segment'}": list(ms)
+                    for (g, st, c), ms in road_layouts.items()},
+            }),
         }
         for name, line, err in (
             ("agent_geometry", 183,

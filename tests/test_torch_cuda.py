@@ -27,8 +27,11 @@ from torch_helpers import (
     planner_fields,
     planner_selection_diff,
     posed_step_inputs,
+    poses_at_chunk_margins,
     poses_at_path_ends,
     poses_near_path_ends,
+    poses_near_self,
+    random_map_poses,
     random_neighbor_inputs,
     random_planner_inputs,
     random_ppo_inputs,
@@ -484,20 +487,26 @@ def test_ppo_kernel_refuses_a_trunk_it_does_not_take(cuda):
 ROAD_MAP3 = dict(map_type="3", n_agents=10)
 
 
-@pytest.mark.parametrize("kwargs,poses", [
-    ({}, "reset"), ({}, "jitter"), ({}, "last"), (ROAD_MAP3, "reset"),
-    (ROAD_MAP3, "ends")])
-def test_road_geometry_kernels_match_plain(cuda, kwargs, poses):
+@pytest.mark.parametrize("kwargs,poses,lanes", [
+    ({}, "reset", None), ({}, "jitter", None), ({}, "last", None),
+    ({}, "random", None), (ROAD_MAP3, "reset", None),
+    (ROAD_MAP3, "ends", None), (ROAD_MAP3, "random", None),
+    ({}, "jitter", 4), ({}, "jitter", 8), ({}, "jitter", 16),
+    ({}, "jitter", 32)])
+def test_road_geometry_kernels_match_plain(cuda, kwargs, poses, lanes):
     """The agent-geometry and pair kernels against geometry_plain
     (torch_helpers.geometry_diff; on path vertices, at reset or just before
     the paths' ends, no index moves and no flag flips), with and without
-    collisions, and two
-    launches bit-identical; the neighbour kernel at the same poses (nd
-    bit-equal)."""
+    collisions, and two launches bit-identical; poses uniform over the map
+    with random path ids (``random``); the agent kernel at each lane group
+    (``lanes``); the neighbour kernel at the same poses (nd bit-equal)."""
     env = vmt_torch.make_env("road_traffic", num_envs=B, device="cuda",
                              seed=0, **kwargs)
     sc, s = env.scenario, env.world.state
-    pos, rot = s.pos, s.rot[..., 0]
+    pos, rot, path_id = s.pos, s.rot[..., 0], sc.path_id
+    if poses == "random":
+        pos, rot, path_id = random_map_poses(sc._tables, B, sc.n_agents,
+                                             seed=3)
     if poses == "jitter":
         g = torch.Generator(device="cuda").manual_seed(3)
         pos = (pos + (torch.rand(pos.shape, generator=g, device="cuda")
@@ -509,13 +518,14 @@ def test_road_geometry_kernels_match_plain(cuda, kwargs, poses):
     elif poses == "last":
         pos, rot = poses_near_path_ends(sc._tables, sc.path_id, seed=4)
     before = dict(road_geometry_cuda.LAUNCHES)
-    got = road_geometry_cuda.fused_geometry(sc._tables, True, pos, rot,
-                                            sc.path_id)
-    again = road_geometry_cuda.fused_geometry(sc._tables, True, pos, rot,
-                                              sc.path_id)
-    bare = road_geometry_cuda.fused_geometry(sc._tables, False, pos, rot,
-                                             sc.path_id)
-    ref = road_geometry.geometry_plain(sc._tables, True, pos, rot, sc.path_id)
+    with road_geometry_cuda.agent_variant(sc._tables, lanes=lanes):
+        got = road_geometry_cuda.fused_geometry(sc._tables, True, pos, rot,
+                                                path_id)
+        again = road_geometry_cuda.fused_geometry(sc._tables, True, pos, rot,
+                                                  path_id)
+        bare = road_geometry_cuda.fused_geometry(sc._tables, False, pos, rot,
+                                                 path_id)
+    ref = road_geometry.geometry_plain(sc._tables, True, pos, rot, path_id)
     torch.cuda.synchronize()
     assert road_geometry_cuda.LAUNCHES["agent_geometry"] == (
         before["agent_geometry"] + 3)
@@ -523,7 +533,8 @@ def test_road_geometry_kernels_match_plain(cuda, kwargs, poses):
         before["pair_collisions"] + 2)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert all(torch.equal(a, b) for a, b in zip(got, bare))
-    report = geometry_diff(sc._tables, pos, rot, sc.path_id, got, ref)
+    assert torch.equal(got[9], got[9].transpose(1, 2))
+    report = geometry_diff(sc._tables, pos, rot, path_id, got, ref)
     assert report["bad"] == 0, report
     if poses in ("reset", "last"):
         assert report["moved"] == report["flipped"] == 0, report
@@ -537,6 +548,42 @@ def test_road_geometry_kernels_match_plain(cuda, kwargs, poses):
     ref = road_geometry.neighbor_obs_plain(*args)
     report = neighbor_diff(got, ref)
     assert report["nd_equal"] and report["bad"] == 0, report
+
+
+@pytest.mark.parametrize("poses", ["random", "chunk margins", "near itself"])
+def test_agent_geometry_variants_are_bit_identical(cuda, poses):
+    """Every lane group, culling and not, tables through L1 and staged in
+    shared memory: the agent kernel's outputs equal the default launch's
+    to the bit, and the default against geometry_plain by geometry_diff
+    (no moved index or flipped flag where culling is tight)."""
+    env = vmt_torch.make_env("road_traffic", num_envs=B, device="cuda",
+                             seed=0)
+    tables = env.scenario._tables
+    A = tables.A
+    pos, rot, pid = {
+        "random": lambda: random_map_poses(tables, B, A, seed=4),
+        "chunk margins": lambda: poses_at_chunk_margins(
+            tables, road_geometry_cuda.AGENT_LANES, 64, A, seed=4),
+        "near itself": lambda: poses_near_self(tables, 64, A, seed=4),
+    }[poses]()
+    got = road_geometry_cuda.launch_agent_geometry(tables, True, pos, rot,
+                                                   pid)
+    ref = road_geometry.geometry_plain(tables, True, pos, rot, pid)
+    report = geometry_diff(tables, pos, rot, pid,
+                           got[:5] + ref[5:6] + got[5:] + ref[9:], ref)
+    assert report["bad"] == 0, report
+    if poses != "random":
+        assert report["moved"] == report["flipped"] == 0, report
+    for lanes in road_geometry_cuda.LANE_GROUPS:
+        for cull in (True, False):
+            for staged in (False, True):
+                with road_geometry_cuda.agent_variant(
+                        tables, lanes=lanes, cull=cull, staged=staged):
+                    other = road_geometry_cuda.launch_agent_geometry(
+                        tables, True, pos, rot, pid)
+                torch.cuda.synchronize()
+                assert all(torch.equal(a, b) for a, b in zip(got, other)), (
+                    lanes, cull, staged)
 
 
 def test_neighbor_kernel_matches_plain_random(cuda):

@@ -26,8 +26,11 @@ from torch_helpers import (
     geometry_diff,
     jax_state_arrays,
     neighbor_diff,
+    poses_at_chunk_margins,
     poses_at_path_ends,
     poses_near_path_ends,
+    poses_near_self,
+    random_map_poses,
     random_neighbor_inputs,
 )
 
@@ -351,6 +354,135 @@ def test_geometry_kernels_on_the_host_match_plain(
         np.testing.assert_array_equal(got[0].numpy(), ref[0].numpy())
 
 
+def _variants_equal(lib, tables, got, pos, rot, path_id, lane_groups,
+                    culls=(True, False)):
+    """The host kernels at each lane group of ``lane_groups``, culling and
+    not, bit-identical to ``got``."""
+    for lanes in lane_groups:
+        for cull in culls:
+            with rgc.agent_variant(tables, lanes=lanes, cull=cull):
+                other = _host_geometry(lib, tables, True, pos, rot, path_id)
+            for name, g, o in zip(GEOMETRY_NAMES, got, other):
+                assert torch.equal(g, o), (name, lanes, cull)
+
+
+@pytest.mark.parametrize("B", [64, 256])
+def test_geometry_kernels_on_the_host_random_map_poses(host_kernels,
+                                                       geometry_cases, B):
+    """Poses uniform over the map, random headings and path ids (most
+    agents far from their path, so culling skips most chunks): the host
+    kernels against ``geometry_plain`` by ``geometry_diff``, and every lane
+    group, culling and not, bit-identical to the default launch."""
+    if host_kernels is None:
+        pytest.skip("needs a host C++ compiler")
+    tables = geometry_cases["1"][0].scenario._tables
+    pos, rot, pid = random_map_poses(tables, B, tables.A, seed=B)
+    got = _host_geometry(host_kernels, tables, True, pos, rot, pid)
+    ref = rg.geometry_plain(tables, True, pos, rot, pid)
+    report = geometry_diff(tables, pos, rot, pid, got, ref)
+    assert report["bad"] == 0, report
+    _variants_equal(host_kernels, tables, got, pos, rot, pid,
+                    rgc.LANE_GROUPS, culls=(True,) if B > 64 else
+                    (True, False))
+
+
+@pytest.mark.parametrize("poses", ["chunk margins", "near itself"])
+def test_geometry_kernels_on_the_host_exact_where_culling_is_tight(
+        host_kernels, geometry_cases, poses):
+    """Poses whose centre or a corner lies on a chunk's box or within a
+    few margins of it, at each lane group's chunks, and poses where a path
+    passes near another part of itself (distances to two far parts of a
+    row nearly tie): the closest index and every flag equal the plain
+    version's, and culling changes no bit."""
+    if host_kernels is None:
+        pytest.skip("needs a host C++ compiler")
+    tables = geometry_cases["1"][0].scenario._tables
+    for lanes in rgc.LANE_GROUPS:
+        if poses == "chunk margins":
+            pos, rot, pid = poses_at_chunk_margins(tables, lanes, 16,
+                                                   tables.A, seed=lanes)
+        else:
+            pos, rot, pid = poses_near_self(tables, 16, tables.A, seed=lanes)
+        with rgc.agent_variant(tables, lanes=lanes):
+            got = _host_geometry(host_kernels, tables, True, pos, rot, pid)
+        ref = rg.geometry_plain(tables, True, pos, rot, pid)
+        report = geometry_diff(tables, pos, rot, pid, got, ref)
+        assert report["bad"] == 0, (lanes, report)
+        assert report["moved"] == report["flipped"] == 0, (lanes, report)
+        np.testing.assert_array_equal(got[4].numpy(), ref[4].numpy())
+        _variants_equal(host_kernels, tables, got, pos, rot, pid, (lanes,),
+                        culls=(False,))
+
+
+@pytest.mark.parametrize("poses", ["random", "touching"])
+def test_pair_matrix_is_symmetric_to_the_bit(host_kernels, geometry_cases,
+                                             poses):
+    """``agents[b, i, j] == agents[b, j, i]`` exactly, on the plain version
+    and on the host pair kernel, which computes each unordered pair once:
+    at random poses (agents crowded into a 1 m square, so that many cross)
+    and at touching dyadic poses."""
+    if host_kernels is None:
+        pytest.skip("needs a host C++ compiler")
+    tables = geometry_cases["1"][0].scenario._tables
+    B, A = 64, tables.A
+    if poses == "random":
+        rng = np.random.RandomState(5)
+        pos = torch.as_tensor(rng.uniform(1.0, 2.0, (B, A, 2))
+                              .astype(np.float32))
+        rot = torch.as_tensor(rng.uniform(-3, 3, (B, A)).astype(np.float32))
+    else:
+        offsets = torch.tensor([[0.0, 0.0], [0.125, 0.0], [0.0, 0.0625],
+                                [0.125, 0.0625], [0.16, 0.0]])
+        pos = (torch.tensor([2.0, 2.0]) + offsets[torch.arange(A) % 5]
+               + (torch.arange(A) // 5)[:, None] * 0.5)
+        pos = pos.expand(B, A, 2).contiguous()
+        rot = torch.zeros((B, A))
+    pid = torch.zeros((B, A), dtype=torch.int32)
+    got = _host_geometry(host_kernels, tables, True, pos, rot, pid)
+    ref = rg.geometry_plain(tables, True, pos, rot, pid)
+    assert float(ref[9].sum()) > 0
+    for m in (ref[9], got[9]):
+        assert torch.equal(m, m.transpose(1, 2))
+    report = geometry_diff(tables, pos, rot, pid, got, ref)
+    assert report["bad"] == 0, report
+
+
+def test_chunk_boxes_hold_their_segments(geometry_cases):
+    """``road_geometry_cuda.chunk_boxes`` at every lane group: each box is
+    the least and largest x and y of its chunk's points, so it holds each
+    of its real segments; ``agent_variant`` puts the chosen layout back."""
+    tables = geometry_cases["1"][0].scenario._tables
+    rows = [x.numpy() for x in (tables.center, tables.left, tables.right)]
+    counts = [x.numpy() for x in (tables.n_points, tables.n_left,
+                                  tables.n_right)]
+    before = [getattr(tables.struct, f) for f, _ in rgc._RoadParams._fields_]
+    for lanes in rgc.LANE_GROUPS:
+        boxes = rgc.chunk_boxes(*rows, *counts, lanes)
+        assert boxes.shape == (40, 3, -(-184 // lanes), 4)
+        for r in range(3):
+            for p in range(40):
+                n_seg = max(int(counts[r][p]) - 1, 1)
+                pts = rows[r][p, :n_seg + 1]
+                c = np.arange(n_seg + 1) // lanes
+                for k in range(-(-n_seg // lanes)):
+                    # the chunk's segments are k*lanes ... and their ends
+                    mine = pts[k * lanes:min((k + 1) * lanes, n_seg) + 1]
+                    np.testing.assert_array_equal(
+                        boxes[p, r, k], np.concatenate(
+                            [mine.min(axis=0), mine.max(axis=0)]))
+                    inside = pts[c == k]
+                    assert (inside >= boxes[p, r, k, :2]).all()
+                    assert (inside <= boxes[p, r, k, 2:]).all()
+        with rgc.agent_variant(tables, lanes=lanes, cull=False, staged=True):
+            assert (tables.struct.lanes, tables.struct.cull,
+                    tables.struct.staged) == (lanes, 0, 1)
+    assert [getattr(tables.struct, f)
+            for f, _ in rgc._RoadParams._fields_] == before
+    with pytest.raises(ValueError, match="lanes"):
+        with rgc.agent_variant(tables, lanes=6):
+            pass
+
+
 def test_geometry_diff_tells_faults_from_ties(geometry_cases):
     """The kernel-vs-plain rule itself: a moved short-term path, flipped
     flags and agent pairs far from any touch are faults; a flipped pair
@@ -440,6 +572,8 @@ def test_kernel_struct_matches_ctypes_mirror(tmp_path):
     ).stdout.split()]
     want = [getattr(rgc._RoadParams, f).offset for f in fields]
     assert got == want + [ctypes.sizeof(rgc._RoadParams)]
+    # the chunk boxes and the agent kernel's layout
+    assert {"boxes", "lanes", "chunks", "cull", "staged"} <= set(fields)
 
 
 def test_wrappers_on_the_cpu_are_the_plain_versions(geometry_cases):

@@ -557,3 +557,116 @@ def poses_near_path_ends(tables, path_id, seed):
     pos = tables.center[pid, idx]
     seg = tables.center[pid, idx + 1] - pos
     return pos.contiguous(), torch.atan2(seg[..., 1], seg[..., 0]).contiguous()
+
+
+def _host_tables(tables):
+    """``tables``' rows and point counts as numpy arrays: (centre, left,
+    right) and (n_points, n_left, n_right)."""
+    rows = [x.cpu().numpy() for x in (tables.center, tables.left,
+                                      tables.right)]
+    counts = [x.cpu().numpy() for x in (tables.n_points, tables.n_left,
+                                        tables.n_right)]
+    return rows, counts
+
+
+def random_map_poses(tables, B, A, seed):
+    """``(pos [B, A, 2], rot [B, A], path_id [B, A] int32)`` on ``tables``'
+    device: positions uniform over the box of every real table point,
+    headings uniform in [-pi, pi), path ids uniform over the paths, so
+    most agents lie far from their path."""
+    rows, counts = _host_tables(tables)
+    real = np.concatenate([r[p, :n] for r, c in zip(rows, counts)
+                           for p, n in enumerate(c)])
+    lo, hi = real.min(axis=0), real.max(axis=0)
+    rng = np.random.RandomState(seed)
+    pos = rng.uniform(lo, hi, (B, A, 2)).astype(np.float32)
+    rot = rng.uniform(-math.pi, math.pi, (B, A)).astype(np.float32)
+    pid = rng.randint(0, len(counts[0]), (B, A)).astype(np.int32)
+    dev = tables.center.device
+    return tuple(torch.as_tensor(x, device=dev) for x in (pos, rot, pid))
+
+
+# Distances from a chunk's box at which poses_at_chunk_margins puts a
+# point: on the box, within the culling tolerance (1e-5 + 1e-4) and just
+# beyond it.
+CHUNK_OFFSETS = (0.0, 1e-6, 1e-5, 5e-5, 1e-4, 1.1e-4, 1.5e-4, 2e-4, 1e-3)
+
+
+def poses_at_chunk_margins(tables, lanes, B, A, seed):
+    """Poses a margin's width from a chunk's box: for each agent a random
+    path, one of its rows (centre line, left or right boundary), a real
+    chunk of ``lanes`` segments of it and a side of the chunk's box
+    (``road_geometry_cuda.chunk_boxes``); the agent's centre (even agents)
+    or one of its corners (odd agents) sits CHUNK_OFFSETS[k] outside that
+    side at a random place along it, at a random heading.  Returns
+    ``(pos, rot, path_id)`` as ``random_map_poses``."""
+    from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        road_geometry_cuda,
+    )
+
+    rows, counts = _host_tables(tables)
+    boxes = road_geometry_cuda.chunk_boxes(*rows, *counts, lanes)
+    rng = np.random.RandomState(seed)
+    half_l, half_w = tables.length / 2, tables.width / 2
+    corners = np.float32([[half_l, half_w], [half_l, -half_w],
+                          [-half_l, -half_w], [-half_l, half_w]])
+    pos = np.zeros((B, A, 2), np.float32)
+    rot = rng.uniform(-math.pi, math.pi, (B, A)).astype(np.float32)
+    pid = rng.randint(0, len(counts[0]), (B, A)).astype(np.int32)
+    for b in range(B):
+        for a in range(A):
+            p, r = pid[b, a], rng.randint(3)
+            n_seg = max(int(counts[r][p]) - 1, 1)
+            x0, y0, x1, y1 = boxes[p, r, rng.randint(-(-n_seg // lanes))]
+            off = CHUNK_OFFSETS[rng.randint(len(CHUNK_OFFSETS))]
+            u = rng.uniform()
+            spot = [(x0 - off, y0 + u * (y1 - y0)),
+                    (x1 + off, y0 + u * (y1 - y0)),
+                    (x0 + u * (x1 - x0), y0 - off),
+                    (x0 + u * (x1 - x0), y1 + off)][rng.randint(4)]
+            spot = np.float32(spot)
+            if a % 2:
+                c, s = math.cos(rot[b, a]), math.sin(rot[b, a])
+                bx, by = corners[rng.randint(4)]
+                spot = spot - np.float32([bx * c - by * s, bx * s + by * c])
+            pos[b, a] = spot
+    dev = tables.center.device
+    return tuple(torch.as_tensor(x, device=dev) for x in (pos, rot, pid))
+
+
+def poses_near_self(tables, B, A, seed, min_gap=40):
+    """Poses where a path passes near another part of itself: for each
+    path, the two real points of one row (centre line, left or right
+    boundary) at least ``min_gap`` points apart along it (around a loop)
+    that lie nearest each other; each agent takes a random path and row and
+    sits on the segment between those two points, at a fraction
+    0.5 +- 0.05 of the way, with a random heading, so that its distances
+    to two parts of the row far apart in index nearly tie.  Returns
+    ``(pos, rot, path_id)`` as ``random_map_poses``."""
+    rows, counts = _host_tables(tables)
+    loops = tables.is_loop.cpu().numpy()
+    near = {}
+    for r in range(3):
+        for p, n in enumerate(counts[r]):
+            pts = rows[r][p, :n].astype(np.float64)
+            d = np.linalg.norm(pts[:, None] - pts[None], axis=-1)
+            gap = np.abs(np.arange(n)[:, None] - np.arange(n)[None])
+            if loops[p]:
+                gap = np.minimum(gap, n - gap)
+            d[gap < min_gap] = np.inf
+            i, j = np.unravel_index(np.argmin(d), d.shape)
+            if np.isfinite(d[i, j]):
+                near[(p, r)] = (pts[i], pts[j])
+    keys = sorted(near)
+    rng = np.random.RandomState(seed)
+    pos = np.zeros((B, A, 2), np.float32)
+    pid = np.zeros((B, A), np.int32)
+    for b in range(B):
+        for a in range(A):
+            p, r = keys[rng.randint(len(keys))]
+            u, v = near[(p, r)]
+            pos[b, a] = u + (0.5 + rng.uniform(-0.05, 0.05)) * (v - u)
+            pid[b, a] = p
+    rot = rng.uniform(-math.pi, math.pi, (B, A)).astype(np.float32)
+    dev = tables.center.device
+    return tuple(torch.as_tensor(x, device=dev) for x in (pos, rot, pid))

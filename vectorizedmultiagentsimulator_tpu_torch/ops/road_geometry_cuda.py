@@ -8,8 +8,12 @@ Replaces the JAX package's Pallas kernels in
 module holds:
 
 * ``PathTables`` and ``path_tables``: the scenario's padded reference
-  paths as device tensors, with the kernels' ``RoadParams`` struct pointing
-  at them, made once per scenario at ``make_world``;
+  paths and their chunk boxes (``chunk_boxes``) as device tensors, with the
+  kernels' ``RoadParams`` struct pointing at them, made once per scenario
+  at ``make_world``;
+* ``agent_variant``: the agent-geometry kernel with another lane group
+  (``lane_boxes``), without culling or with the tables in shared memory,
+  for comparisons;
 * ``fused_geometry``: every per-step path quantity of road_traffic.  On
   CUDA tensors it launches the agent-geometry kernel and, with collisions,
   the pair kernel, or raises; on CPU tensors it runs
@@ -27,6 +31,7 @@ built at first use by :mod:`.cuda_build`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 from typing import NamedTuple
@@ -42,6 +47,13 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 SOURCE = os.path.join(cuda_build.CSRC, "road_geometry.cu")
 
+# The agent-geometry kernel's layout (RoadParams.lanes, .staged), chosen by
+# the device time at road_traffic@10k on the H100 over 4, 8, 16 and 32
+# lanes an agent and both table placements (PERF.md section 6, row 5).
+AGENT_LANES = 8
+STAGED = False
+LANE_GROUPS = (4, 8, 16, 32)
+
 Tensor = torch.Tensor
 
 _P = ctypes.c_void_p
@@ -52,9 +64,11 @@ _F = ctypes.c_float
 class _RoadParams(ctypes.Structure):
     """``RoadParams`` of csrc/road_geometry.cu, field for field."""
 
-    _fields_ = [(n, _P) for n in ("center", "left", "right", "meta", "ends")]
+    _fields_ = [(n, _P) for n in ("center", "left", "right", "meta", "ends",
+                                  "boxes")]
     _fields_ += [(n, _I) for n in ("n_paths", "P", "A", "K", "SI",
-                                   "entry_exit")]
+                                   "entry_exit", "lanes", "chunks", "cull",
+                                   "staged")]
     _fields_ += [("half_l", _F), ("half_w", _F)]
 
 
@@ -65,10 +79,12 @@ class PathTables(NamedTuple):
     ``n_left``, ``n_right`` [n_paths] int32; ``is_loop`` [n_paths] bool;
     ``entry``, ``exit`` [n_paths, 2, 2] float32 (the plain version's
     tables); ``meta`` [n_paths, 4] int32 and ``ends`` [n_paths, 2, 2, 2]
-    float32 (the same, packed for the kernels).  ``width``, ``length``:
-    the agents' box; ``K`` short-term points every ``SI``-th point;
-    ``entry_exit``: whether collisions test the entry and exit segments;
-    ``A``: agents; ``struct``: the kernels' ``RoadParams``."""
+    float32 (the same, packed for the kernels); ``boxes`` [n_paths, 3,
+    chunks, 4] float32, ``chunk_boxes`` at the agent kernel's lane group,
+    and ``boxes_at``, those of each group made so far.  ``width``,
+    ``length``: the agents' box; ``K`` short-term points every ``SI``-th
+    point; ``entry_exit``: whether collisions test the entry and exit
+    segments; ``A``: agents; ``struct``: the kernels' ``RoadParams``."""
 
     center: Tensor
     left: Tensor
@@ -81,6 +97,8 @@ class PathTables(NamedTuple):
     exit: Tensor
     meta: Tensor
     ends: Tensor
+    boxes: Tensor
+    boxes_at: dict
     width: float
     length: float
     K: int
@@ -92,7 +110,31 @@ class PathTables(NamedTuple):
     @property
     def kernel_tensors(self):
         """The device tensors the kernels read."""
-        return (self.center, self.left, self.right, self.meta, self.ends)
+        return (self.center, self.left, self.right, self.meta, self.ends,
+                self.boxes)
+
+
+def chunk_boxes(center, left, right, n_points, n_left, n_right,
+                lanes: int) -> np.ndarray:
+    """[n_paths, 3, chunks, 4] float32: for the centre line, the left and
+    the right boundary of each path (numpy ``[n_paths, P, 2]`` float32
+    tables with their point counts), the least and largest x and y (xmin,
+    ymin, xmax, ymax) of the points of each chunk of ``lanes`` consecutive
+    real segments.  A row of n points has max(n - 1, 1) segments, segment
+    j joining points j and j + 1; ``chunks`` = ceil((P - 1) / lanes), and
+    the boxes past a row's last chunk are zero (never read)."""
+    n_paths, P = center.shape[:2]
+    chunks = -(-(P - 1) // lanes)
+    out = np.zeros((n_paths, 3, chunks, 4), np.float32)
+    for r, (table, counts) in enumerate(((center, n_points), (left, n_left),
+                                         (right, n_right))):
+        for path in range(n_paths):
+            n_seg = max(int(counts[path]) - 1, 1)
+            for c in range(-(-n_seg // lanes)):
+                pts = table[path, c * lanes:min((c + 1) * lanes, n_seg) + 1]
+                out[path, r, c, :2] = pts.min(axis=0)
+                out[path, r, c, 2:] = pts.max(axis=0)
+    return out
 
 
 def path_tables(paths, *, width: float, length: float, K: int, SI: int,
@@ -120,14 +162,59 @@ def path_tables(paths, *, width: float, length: float, K: int, SI: int,
         meta=on_dev(meta, np.int32),
         ends=on_dev(ends, np.float32),
     )
+    t["boxes"] = on_dev(chunk_boxes(
+        paths.center.astype(np.float32), paths.left.astype(np.float32),
+        paths.right.astype(np.float32), paths.n_points, paths.n_left,
+        paths.n_right, AGENT_LANES), np.float32)
     n_paths, P = paths.center.shape[:2]
     struct = _RoadParams(
         *(t[k].data_ptr() for k in ("center", "left", "right", "meta",
-                                    "ends")),
-        n_paths, P, n_agents, K, SI, int(entry_exit), length / 2, width / 2,
+                                    "ends", "boxes")),
+        n_paths, P, n_agents, K, SI, int(entry_exit), AGENT_LANES,
+        t["boxes"].shape[2], 1, int(STAGED), length / 2, width / 2,
     )
-    return PathTables(**t, width=width, length=length, K=K, SI=SI,
-                      entry_exit=bool(entry_exit), A=n_agents, struct=struct)
+    return PathTables(**t, boxes_at={AGENT_LANES: t["boxes"]}, width=width,
+                      length=length, K=K, SI=SI, entry_exit=bool(entry_exit),
+                      A=n_agents, struct=struct)
+
+
+def lane_boxes(tables: PathTables, lanes: int) -> Tensor:
+    """``tables``' chunk boxes for a group of ``lanes`` (4, 8, 16 or 32), on
+    their device, made at first use."""
+    if lanes not in LANE_GROUPS:
+        raise ValueError(f"lanes must be one of {LANE_GROUPS}")
+    boxes = tables.boxes_at.get(lanes)
+    if boxes is None:
+        host = [x.cpu().numpy() for x in (
+            tables.center, tables.left, tables.right, tables.n_points,
+            tables.n_left, tables.n_right)]
+        boxes = tables.boxes_at[lanes] = torch.as_tensor(
+            chunk_boxes(*host, lanes), device=tables.center.device)
+    return boxes
+
+
+@contextlib.contextmanager
+def agent_variant(tables: PathTables, lanes: int = None, cull: bool = None,
+                  staged: bool = None):
+    """Launch ``tables``' agent-geometry kernel with ``lanes`` threads an
+    agent (4, 8, 16 or 32; ``lane_boxes``), without chunk culling (``cull=False``) or with the path tables
+    staged in shared memory (``staged=True``): phase 2 and the tests hold
+    every variant to the plain version.  The chosen layout comes back on
+    exit."""
+    s = tables.struct
+    saved = (s.lanes, s.chunks, s.boxes, s.cull, s.staged)
+    try:
+        if lanes is not None:
+            boxes = lane_boxes(tables, lanes)
+            s.lanes, s.chunks, s.boxes = (lanes, boxes.shape[2],
+                                          boxes.data_ptr())
+        if cull is not None:
+            s.cull = int(cull)
+        if staged is not None:
+            s.staged = int(staged)
+        yield
+    finally:
+        s.lanes, s.chunks, s.boxes, s.cull, s.staged = saved
 
 
 def build() -> str:
