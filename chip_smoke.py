@@ -28,15 +28,23 @@ Phases, one line each:
      output to 4 x max |plain32 - plain64| + 1e-4 (torch_helpers.
      physics_diff; the numbers printed); two launches bit-identical on
      each joint world.
-     Ray cast: every agent's LIDAR of each main path after those 10 steps,
-     the tests/golden/raycast.npz scene tiled to 30k envs with random poses,
-     and axis-aligned rays against unrotated boxes; each line counts the
-     rays that hit and the rays where one side hits and the other misses.
+     Ray cast: every LIDAR group of each main path after those 10 steps
+     (navigation's and flocking's four LIDARs, one launch from the four
+     agents, each skipping itself) and its first agent's LIDAR alone (one
+     origin), the tests/golden/raycast.npz scene tiled to 30k envs with
+     random poses, axis-aligned rays against unrotated boxes, and the
+     golden shapes on the edge of the kernel's reach test
+     (torch_helpers.poses_at_cast_reach), each from the agent alone and
+     from every entity of the scene in one launch;
+     each against the plain version from each origin over its own table,
+     two launches bit-identical; each line counts the rays that hit and
+     the rays where one side hits and the other misses.
      Each main path's random inputs again with the physics kernel forced to
      one lane an env (the lane group is chosen at finalize).  Then each
      kernel's time beside its plain version's (physics at each main path,
      with the device time at each lane group 1, 2, 4 and 8; the ray cast at
-     navigation@30k).  PPO update: one minibatch
+     navigation@30k and flocking@30k, the group's launch and one LIDAR's,
+     and the host time of a step's LIDAR measures).  PPO update: one minibatch
      at transport@4096's shapes in Gaussian, flat-categorical and
      multidiscrete mode, with a 1-wide action, with norm_n != mb, with a
      ragged last tile, with hidden sizes of 96, 100 (padded to 112), 128,
@@ -69,7 +77,8 @@ Phases, one line each:
      (torch_helpers.geometry_diff: continuous outputs within 1e-5 +
      1e-5|ref|, a moved index or flipped flag only at a near tie or
      touch); the pair matrix equal to its transpose; the neighbour kernel
-     on each of those and on random inputs (nd bit-equal); two launches
+     on each of those and on random inputs at 6, 20, 33 and 64 agents with
+     1 and 2 neighbours, half the envs with ties (nd bit-equal); two launches
      bit-identical; then each kernel's time (CUDA events and device time),
      its plain version's and its bound (the agent kernel's from the chunks
      its culling keeps for these inputs, the pair kernel's from the pairs
@@ -83,8 +92,8 @@ Phases, one line each:
      vehicles, the CPM-Lab map) at 10k, reset, 100 env.step calls under
      torch.cuda.set_sync_debug_mode("error") (any host sync fails the run);
      outputs finite and of the JAX package's shapes; exactly one physics
-     launch per step, one ray-cast launch per LIDAR measure (4 a step in
-     navigation and flocking, none elsewhere), one planner launch per AI
+     launch per step, one ray-cast launch per LIDAR group and step (1 a
+     step in navigation and flocking, none elsewhere), one planner launch per AI
      team and step (football) and one launch of each road kernel a step
      (road_traffic), each count set to 0 just before the run and read just
      after; road_traffic with map '3' (10 agents), whose done() re-places
@@ -129,9 +138,11 @@ parent commit unpacked with `git archive` into a gitignored directory) on
 one card: PAIRS (default 10) alternating pairs of processes, each running
 two 100-step rollouts of joint_passage and buzz_wire at 30k envs with the
 physics wrapper's time per call and its kernel's device time, two of
-road_traffic at 10k with the agent-geometry and pair kernels' device time
-a launch, and two training iterations of transport@16384 (update and
-iteration ms); it prints each run and a JSON summary.
+road_traffic at 10k with the agent-geometry, pair and neighbour kernels'
+device time a launch, two of navigation and flocking at 30k with the ray
+cast's device time and launches a step, and two training iterations of
+transport@16384 (update and iteration ms); it prints each run and a JSON
+summary.
 """
 import contextlib
 import json
@@ -166,18 +177,22 @@ CAST_TOL = 1e-5
 # and the training cell it times (update and iteration ms).
 AB_SCENARIOS = ("joint_passage", "buzz_wire")
 AB_TRAIN = ("transport", 16384)
-# And road_traffic@10k: env-steps/s and its agent-geometry and pair
-# kernels' device ms a launch.
+# And road_traffic@10k: env-steps/s and its agent-geometry, pair and
+# neighbour kernels' device ms a launch.
 AB_ROAD = ("road_traffic", 10_000)
-# (scenario, envs, agents, obs width, ray-cast launches a step, planner
+# And the LIDAR paths at 30k envs: env-steps/s, the ray cast's device ms
+# and launches a step.
+AB_LIDAR = ("navigation", "flocking")
+# (scenario, envs, agents, obs width, ray-cast launches a step (one a LIDAR
+# group: navigation's and flocking's four LIDARs are one), planner
 # launches a step, road-kernel launches a step: agent geometry, pair,
 # neighbour).  road_traffic runs at 10k envs: the plain version's [B, A, 5,
 # 184] fp32 intermediates, several alive at once, are 0.74 GB each there.
 MAIN_PATHS = [
     ("transport", N_ENVS, 4, 11, 0, 0, (0, 0, 0)),
     ("simple_spread", N_ENVS, 3, 14, 0, 0, (0, 0, 0)),
-    ("navigation", N_ENVS, 4, 18, 4, 0, (0, 0, 0)),
-    ("flocking", N_ENVS, 4, 18, 4, 0, (0, 0, 0)),
+    ("navigation", N_ENVS, 4, 18, 1, 0, (0, 0, 0)),
+    ("flocking", N_ENVS, 4, 18, 1, 0, (0, 0, 0)),
     ("balance", N_ENVS, 3, 16, 0, 0, (0, 0, 0)),
     ("football", N_ENVS, 5, 88, 0, 1, (0, 0, 0)),
     ("joint_passage", N_ENVS, 2, 10, 0, 0, (0, 0, 0)),
@@ -226,11 +241,14 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # Arithmetic per pair class and substep of csrc/physics_step.cu (per joint
 # constraint, and the fixed-rotation torque of one that does not rotate), and per
-# ray and entity class of csrc/raycast.cu (each sqrt, sin, cos, exp, log
-# and division counted as one operation), counted from the sources.
+# ray and entity class of csrc/raycast.cu, with each box's and line's trig
+# once an env ("box_env", "line_env") and each (env, origin, entity)'s
+# reach test ("reach") (each sqrt, sin, cos, exp, log and division
+# counted as one operation), counted from the sources.
 PHYSICS_OPS = {"ss": 29, "bs": 131, "ls": 42, "ll": 133, "bl": 470,
                "bb": 3300, "entity": 25, "joint": 102, "joint_fixed": 17}
-CAST_OPS = {"ray": 3, "sphere": 37, "box": 55, "line": 28}
+CAST_OPS = {"ray": 3, "sphere": 37, "box": 50, "line": 24, "box_env": 5,
+            "line_env": 4, "reach": 15}
 # The same for csrc/football_policy.cu: per candidate and teammate, plus
 # the teammate-repulsion term per candidate, teammate and other teammate.
 PLANNER_OPS = {"candidate": 91, "pair": 11}
@@ -287,10 +305,10 @@ PPO_WIDE = ("transport hidden 96", "transport hidden 100",
             "transport hidden 256", "transport hidden 300")
 # (scenario, envs, rollout steps, iterations, ray casts a step, hidden) of
 # the training runs of phase 3; a step observes once and once more in its
-# masked reset, so it casts each LIDAR twice.  The last trains a hidden-256
-# trunk through the kernel.
+# masked reset, so it casts its LIDAR group twice.  The last trains a
+# hidden-256 trunk through the kernel.
 TRAIN_PATHS = [("transport", 4096, 64, 3, 0, 64),
-               ("navigation", 4096, 16, 2, 8, 64),
+               ("navigation", 4096, 16, 2, 2, 64),
                ("transport", 4096, 16, 1, 0, 256)]
 TRAIN_CELLS = [("simple_spread", 4096), ("transport", 4096),
                ("transport", 16384)]
@@ -439,28 +457,39 @@ def state_inputs(world):
             physics_cuda.stacked_dyn_gravity(world, s.extras))
 
 
-def cast_vs_plain(pos, rot, angles, origin, table, max_range, label):
+def cast_vs_plain(pos, rot, angles, origins, table, max_range, label):
+    """The ray-cast kernel (twice: the two launches must give the same
+    bits) against cast_rays_plain from each origin over its own table
+    (the table without the origin), within CAST_TOL + CAST_TOL|ref| and
+    with no ray that hits on one side and misses on the other; returns the
+    largest |kernel - plain|."""
     import torch
     from vectorizedmultiagentsimulator_tpu_torch.ops import raycast_cuda
 
     with torch.no_grad():
-        got = raycast_cuda.fused_cast_rays(pos, rot, angles, origin, table,
+        got = raycast_cuda.fused_cast_rays(pos, rot, angles, origins, table,
                                            max_range)
-        ref = raycast_cuda.cast_rays_plain(pos, rot, angles, origin, table,
+        again = raycast_cuda.fused_cast_rays(pos, rot, angles, origins,
+                                             table, max_range)
+        ref = raycast_cuda.cast_rays_plain(pos, rot, angles, origins, table,
                                            max_range)
     torch.cuda.synchronize()
     err, ok = max_err([got], [ref], CAST_TOL, CAST_TOL)
+    same = torch.equal(got, again)
     cap = torch.tensor(max_range, dtype=torch.float32, device=got.device)
     flips = int(((got == cap) != (ref == cap)).sum())
     hits = int((ref < cap).sum())
-    log(f"[2] ray cast {label}: B={pos.shape[0]} R={got.shape[1]}"
-        f" spheres={len(table.sphere_idx)} boxes={len(table.box_idx)}"
-        f" lines={len(table.line_idx)} hits={hits}"
-        f" max|kernel-plain| = {err:.3e}, hit/miss disagreements {flips}")
-    if not ok or flips:
+    n_origins = 1 if isinstance(origins, int) else len(origins)
+    log(f"[2] ray cast {label}: O={n_origins} B={pos.shape[0]}"
+        f" R={angles.shape[-1]} spheres={len(table.sphere_idx)}"
+        f" boxes={len(table.box_idx)} lines={len(table.line_idx)}"
+        f" hits={hits} max|kernel-plain| = {err:.3e}, hit/miss"
+        f" disagreements {flips}, two launches bit-identical: {same}")
+    if not ok or flips or not same:
         raise AssertionError(
             f"{label}: ray-cast kernel disagrees with plain beyond"
-            f" {CAST_TOL} + {CAST_TOL}|ref| or on a hit ({flips} flips)"
+            f" {CAST_TOL} + {CAST_TOL}|ref| or on a hit ({flips} flips), or"
+            f" two launches differ ({not same})"
         )
     return err
 
@@ -481,18 +510,101 @@ def physics_bound_ms(world, inputs):
     return bound(moved, ops)
 
 
-def cast_bound_ms(pos, angles, table, heading):
-    """The same for one ray cast: the origin's and each cast entity's
-    pose, the angles and the distances written."""
+def cast_bound_ms(pos, angles, origins, table, max_range):
+    """The same for one ray-cast launch: the staged poses (the cast
+    entities and the origins, x, y and rot each) read once an env, the
+    angles, and the O x B x R distances written; the operations these
+    poses need: each ray's angle and direction, each (env, origin,
+    entity)'s reach test, each box's and line's trig once an env, and each
+    ray's test of the entities in its origin's reach (csrc/raycast.cu's
+    rule, without its margin)."""
+    import math
+    import torch
+
     B, R = pos.shape[0], angles.shape[-1]
-    ns, nb, nl = (len(table.sphere_idx), len(table.box_idx),
-                  len(table.line_idx))
-    moved = B * (8 + 4 * heading + 8 * ns + 12 * (nb + nl))
-    moved += angles.numel() * 4 + B * R * 4
-    moved += sum(x.numel() * x.element_size() for x in table.tensors)
-    ops = B * R * (CAST_OPS["ray"] + CAST_OPS["sphere"] * ns
-                   + CAST_OPS["box"] * nb + CAST_OPS["line"] * nl)
+    origins = (origins,) if isinstance(origins, int) else tuple(origins)
+    s, b, l = table.entities
+    radius, b_len, b_wid, l_len = table.sizes
+    cast = s + b + l
+    staged = len(set(cast + origins))
+    moved = B * staged * 12 + angles.numel() * 4 + len(origins) * B * R * 4
+    reach = torch.tensor(
+        list(radius) + [0.5 * math.hypot(x, y) for x, y in zip(b_len, b_wid)]
+        + [0.5 * x for x in l_len], device=pos.device)
+    cost = torch.tensor([CAST_OPS["sphere"]] * len(s)
+                        + [CAST_OPS["box"]] * len(b)
+                        + [CAST_OPS["line"]] * len(l),
+                        dtype=torch.float64, device=pos.device)
+    ent = torch.tensor(cast, dtype=torch.long, device=pos.device)
+    in_reach = 0.0
+    for o in origins:
+        d = (pos[:, ent] - pos[:, o:o + 1]).norm(dim=-1)  # [B, C]
+        near = (d <= max_range + reach) & (ent != o)
+        in_reach += float((near.double() * cost).sum())
+    ops = (len(origins) * B * R * CAST_OPS["ray"] + R * in_reach
+           + B * (CAST_OPS["box_env"] * len(b) + CAST_OPS["line_env"] * len(l))
+           + len(origins) * B * len(cast) * CAST_OPS["reach"])
     return bound(moved, ops)
+
+
+def cast_times(args, label):
+    """A ray-cast launch's ms a call (CUDA events over 200 back-to-back
+    calls), device ms (the profiler), the plain version's ms and the
+    bound, at ``args`` = (pos, rot, angles, origins, table, max_range)."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.ops import raycast_cuda
+
+    with torch.no_grad():
+        call = lambda: raycast_cuda.fused_cast_rays(*args)
+        plain = lambda: raycast_cuda.cast_rays_plain(*args)
+        for _ in range(3):
+            call()
+            plain()
+        t = {"ms": cuda_time_ms(call, 200),
+             "device_ms": device_ms(call, 20, "cast_rays_kernel"),
+             "plain_ms": cuda_time_ms(plain, 20)}
+    t["bound_ms"], t["bound_by"] = cast_bound_ms(args[0], args[2], args[3],
+                                                 args[4], args[5])
+    log(f"[2] ray cast at {label}: {t['ms']:.5f} ms a call (CUDA events),"
+        f" {t['device_ms']:.5f} ms device, plain {t['plain_ms']:.4f} ms,"
+        f" bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+    return t
+
+
+def measure_enqueue_ms(env, iters=200):
+    """Host ms (perf_counter, no synchronize) of one step's LIDAR
+    measures: every agent's Lidar.measure after a pose write (one grouped
+    launch, the other agents reading its slices), and the same LIDARs as
+    one single-origin wrapper call each (the layout before grouping)."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.ops import raycast_cuda
+
+    w = env.world
+    s = w.state
+    lidars = [x for a in w.agents for x in a.sensors]
+    group = w._lidar_groups[(lidars[0], lidars[0].agent,
+                             lidars[0].entity_filter)][0]
+    poses = (s.pos, s.pos.clone())
+    out = {}
+    with torch.no_grad():
+        for key in ("grouped", "single", "grouped", "single"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(iters):
+                s.pos = poses[i % 2]  # a pose write: the cache is stale
+                if key == "grouped":
+                    for x in lidars:
+                        x.measure()
+                else:
+                    for x in lidars:
+                        raycast_cuda.fused_cast_rays(
+                            s.pos, s.rot, x._angles, x.agent.index,
+                            group.table, x._max_range)
+            out.setdefault(key, []).append(
+                (time.perf_counter() - t0) * 1e3 / iters)
+            torch.cuda.synchronize()
+    s.pos = poses[0]
+    return out
 
 
 def bound(moved, ops):
@@ -772,9 +884,10 @@ def rate_worker(root):
     scenario of AB_SCENARIOS at 30k envs two N_STEPS-step rollouts'
     env-steps/s and the physics wrapper's time per call and its kernel's
     device time (back-to-back calls from the reset state); for AB_ROAD
-    two rollouts' env-steps/s and the agent-geometry and pair wrappers'
-    time per call and kernels' device time at the state they end in; then
-    for
+    two rollouts' env-steps/s and the agent-geometry, pair and neighbour
+    wrappers' time per call and kernels' device time at the state they end
+    in; for AB_LIDAR two rollouts' env-steps/s and the ray cast's device
+    ms and launches a step over 20 more steps; then for
     AB_TRAIN at the PPOConfig defaults, after one warm-up iteration, two
     iterations' update ms and whole-iteration ms (host clock, each ended by
     a synchronize); one JSON line of {metric: value}."""
@@ -784,6 +897,7 @@ def rate_worker(root):
     from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
     from vectorizedmultiagentsimulator_tpu_torch.ops import (
         physics_cuda,
+        raycast_cuda,
         road_geometry_cuda,
     )
 
@@ -823,7 +937,30 @@ def rate_worker(root):
                                                                       50)
             out[f"{name}@{num_envs} {kernel} device ms"] = device_ms(
                 call, 20, kernel)
-    del env, actions
+    nargs = road_inputs(env)[1]
+    call = lambda: road_geometry_cuda.fused_neighbor_obs(*nargs)
+    with torch.no_grad():
+        for _ in range(3):
+            call()
+        out[f"{name}@{num_envs} neighbor_obs ms/call"] = cuda_time_ms(call,
+                                                                      50)
+        out[f"{name}@{num_envs} neighbor_obs device ms"] = device_ms(
+            call, 20, "neighbor_obs_kernel")
+    del env, actions, nargs, call
+    for name in AB_LIDAR:
+        env = vmt.make_env(name, num_envs=N_ENVS, device="cuda", seed=0)
+        actions = random_actions(env, N_STEPS, seed=7)
+        out[f"{name} env-steps/s"] = sum(
+            timed_rollout(env, actions) for _ in range(2)) / 2
+        # The ray cast's device ms and launches a step, over 20 steps.
+        with torch.no_grad():
+            before = raycast_cuda.LAUNCHES
+            it = iter(actions[:20])
+            out[f"{name} ray-cast device ms/step"] = device_ms(
+                lambda: env.step(next(it)), 20, "cast_rays_kernel")
+            out[f"{name} ray-cast launches/step"] = (
+                raycast_cuda.LAUNCHES - before) / 20
+        del env, actions
     name, num_envs = AB_TRAIN
     _, _, tr = torch_ppo.init_training(name, num_envs, seed=0)
     tr.train_step()
@@ -1596,6 +1733,7 @@ def road_phase_2(errs):
     device_ms)} at road_traffic@10k after 10 steps, the main path's inputs,
     and the agent kernel's ms a launch at each layout, {(lanes, staged,
     cull): (CUDA events ms, device ms)}."""
+    import numpy as np
     import torch
     from torch_helpers import (
         poses_at_chunk_margins,
@@ -1664,10 +1802,20 @@ def road_phase_2(errs):
         if not tag:
             main_inputs = (tables, pos, rot, pid, nargs)
         del env
-    inputs = [torch.as_tensor(x, device="cuda")
-              for x in random_neighbor_inputs(envs, 20, seed=6)]
-    errs["neighbor_obs"].append(neighbors_vs_plain(
-        (20, 2, 0.08, 0.04, *inputs), f"random inputs at {envs}"))
+    # Random inputs at A = 6 to 64 (past 32 a lane takes two agents), and
+    # the same with every other env's dn on a grid of 0.5, so that rounds
+    # meet ties.
+    for A in (6, 20, 33, 64):
+        pos_, rot_, vel_, dn_ = random_neighbor_inputs(envs, A, seed=6)
+        tied = dn_.copy()
+        tied[::2] = np.round(tied[::2] * 2) / 2
+        for k in (1, 2):
+            for d, tag in ((dn_, ""), (tied, ", half the envs with ties")):
+                inputs = [torch.as_tensor(x, device="cuda")
+                          for x in (pos_, rot_, vel_, d)]
+                errs["neighbor_obs"].append(neighbors_vs_plain(
+                    (A, k, 0.08, 0.04, *inputs),
+                    f"random inputs at {envs}, A={A} k={k}{tag}"))
 
     tables, pos, rot, pid, nargs = main_inputs
     agent_call = lambda: rgc.launch_agent_geometry(tables, True, pos, rot,
@@ -1752,6 +1900,7 @@ def main():
         build_world,
         jittered_inputs,
         posed_step_inputs,
+        poses_at_cast_reach,
         random_step_inputs,
     )
 
@@ -1807,6 +1956,7 @@ def main():
 
     # ---- 2: kernels vs plain on the card ---- #
     errs, stiff_errs, cast_errs, planner_errs, times = [], [], [], [], {}
+    cast_t = {}
 
     def held(result):
         """File a comparison's error under the rule that held it."""
@@ -1889,14 +2039,35 @@ def main():
         held(kernel_vs_plain(w, state_inputs(w), f"{label} 10 steps",
                              stiff=stiff))
         s = w.state
-        for agent in env.agents:
-            for lidar in agent.sensors:
-                table = w._cast_tables[(agent.index, lidar.entity_filter)]
-                cast_args = (s.pos, s.rot, lidar._angles, agent.index, table,
-                             lidar._max_range)
-                cast_errs.append(cast_vs_plain(
-                    *cast_args, f"{label} 10 steps, {agent.name}'s LIDAR"
-                ))
+        # Every LIDAR group of the path (navigation's and flocking's four
+        # agents are one), cast in one launch from all its agents, against
+        # the plain version from each agent over its own table.
+        groups = list({id(g): g for g, _ in w._lidar_groups.values()}
+                      .values())
+        for grp in groups:
+            cast_args = (s.pos, s.rot, grp.angles, grp.origins, grp.table,
+                         grp.max_range)
+            cast_errs.append(cast_vs_plain(
+                *cast_args, f"{label} 10 steps, the LIDARs of"
+                f" {len(grp.origins)} agents in one launch"))
+            # The first agent's LIDAR alone (one origin, as World.cast_rays
+            # launches it).
+            single_args = cast_args[:3] + (grp.origins[0],) + cast_args[4:]
+            cast_errs.append(cast_vs_plain(
+                *single_args, f"{label} 10 steps, one agent's LIDAR alone"))
+            cast_t[name] = {"batched": cast_times(
+                cast_args, f"{label} after 10 steps, {len(grp.origins)}"
+                f" LIDARs in one launch"), "single": cast_times(
+                single_args, f"{label} after 10 steps, one LIDAR (O = 1)")}
+        if groups:
+            enqueue = measure_enqueue_ms(env)
+            cast_t[name]["enqueue_ms"] = enqueue
+            log(f"[2] ray cast at {label}: host ms (no synchronize) of a"
+                f" step's {len(groups[0].origins)} LIDAR measures after a"
+                f" pose write, grouped (one launch)"
+                f" {' '.join(f'{x:.4f}' for x in enqueue['grouped'])}; as"
+                f" one single-origin wrapper call each"
+                f" {' '.join(f'{x:.4f}' for x in enqueue['single'])}")
         with torch.no_grad():
             step = lambda: physics_cuda.fused_step(w, *r_inputs)
             kernel_ms = cuda_time_ms(step, 50)
@@ -1915,18 +2086,6 @@ def main():
                 f" {plain_ms:.4f} ms, bound {times[name][2][0]:.5f} ms"
                 f" ({times[name][2][1]}); device ms a launch with 1/2/4/8"
                 f" lanes " + " ".join(f"{v:.4f}" for v in sweep.values()))
-            if name == "navigation":
-                # One LIDAR of the path, as the main path casts it.
-                cast_ms = cuda_time_ms(
-                    lambda: raycast_cuda.fused_cast_rays(*cast_args), 200)
-                cast_plain_ms = cuda_time_ms(
-                    lambda: raycast_cuda.cast_rays_plain(*cast_args), 200)
-                cast_bound, cast_by = cast_bound_ms(s.pos, lidar._angles,
-                                                    table, True)
-                log(f"[2] ray cast at {label} (one LIDAR, 12 rays,"
-                    f" {len(table.sphere_idx)} spheres): kernel"
-                    f" {cast_ms:.4f} ms, plain {cast_plain_ms:.4f} ms, bound"
-                    f" {cast_bound:.5f} ms ({cast_by})")
         del env, w, s, r_inputs
     # The physics row of the kernels line: transport@30k, as in the earlier
     # slices, and joint_passage@30k, the path of the joint branch, under
@@ -1965,6 +2124,20 @@ def main():
         pos, rot, tiled("angles").contiguous(), origin, gtable, 1.5,
         f"golden scene tiled to {N_ENVS}",
     ))
+    # Every entity of the scene an origin of one launch over all seven,
+    # each skipping itself, with the golden's first base angles.
+    everyone = raycast_cuda.cast_table(
+        gw, [names.index(n) for n in ("s0", "s1", "a")],
+        [names.index("b0"), names.index("b1")],
+        [names.index("li0"), names.index("li1")],
+    )
+    origins = tuple(names.index(n) for n in ("a", "s0", "b0", "li0", "s1",
+                                             "b1", "li1"))
+    base = torch.as_tensor(golden["angles"][0], device="cuda")
+    cast_errs.append(cast_vs_plain(
+        pos, rot, base, origins, everyone, 1.5,
+        f"golden scene tiled to {N_ENVS}, every entity an origin",
+    ))
     # Axis-aligned rays against unrotated boxes; half of the origins lie on
     # the line of b0's +-width side, so the ray along +x grazes it.
     rot[:, :2] = 0.0
@@ -1977,7 +2150,24 @@ def main():
     cast_errs.append(cast_vs_plain(
         pos, rot, axis, origin, gtable, 1.5, "axis-aligned rays, unrotated boxes"
     ))
-    del gw, pos, rot
+    cast_errs.append(cast_vs_plain(
+        pos, rot, axis, origins, everyone, 1.5,
+        "axis-aligned rays, unrotated boxes, every entity an origin"
+    ))
+    # Every other entity on the edge of the kernel's reach test from the
+    # agent (torch_helpers.poses_at_cast_reach): its culling must change
+    # nothing.
+    rpos, rrot = (torch.as_tensor(x, device="cuda") for x in
+                  poses_at_cast_reach(gw, origin, golden["angles"][0], 1.5,
+                                      seed=8, B=N_ENVS))
+    cast_errs.append(cast_vs_plain(
+        rpos, rrot, base, origin, gtable, 1.5,
+        "golden shapes on the edge of the reach test"))
+    cast_errs.append(cast_vs_plain(
+        rpos, rrot, base, origins, everyone, 1.5,
+        "golden shapes on the edge of the reach test, every entity an"
+        " origin"))
+    del gw, pos, rot, rpos, rrot
     plan_ms, plan_plain_ms, plan_bound, plan_by = planner_phase_2(
         planner_errs, planner_real)
     del planner_real
@@ -2088,11 +2278,22 @@ def main():
             "replaces": "vectorizedmultiagentsimulator_tpu/ops/raycast_pallas.py:47",
             "launches": launches["raycast"],
             "max_abs_err": max(cast_errs),
-            "ms": cast_ms,
-            "plain_ms": cast_plain_ms,
-            "bound_ms": cast_bound,
-            "bound_by": cast_by,
+            # navigation@30k after 10 steps: its four LIDARs in one launch,
+            # as the main path casts them.
+            "path": f"navigation@{PATH_ENVS['navigation']}",
+            "ms": cast_t["navigation"]["batched"]["ms"],
+            "device_ms": cast_t["navigation"]["batched"]["device_ms"],
+            "plain_ms": cast_t["navigation"]["batched"]["plain_ms"],
+            "bound_ms": cast_t["navigation"]["batched"]["bound_ms"],
+            "bound_by": cast_t["navigation"]["batched"]["bound_by"],
+            # No single PyTorch call computes a ray cast.
             "library_ms": None,
+            # One LIDAR alone (O = 1, as World.cast_rays launches it), and
+            # flocking@30k's group and single LIDAR; host ms of a step's
+            # measures, grouped and as single-origin calls.
+            "single_origin": cast_t["navigation"]["single"],
+            "flocking": cast_t["flocking"],
+            "enqueue_ms": cast_t["navigation"]["enqueue_ms"],
         },
         {
             "name": "football_policy",

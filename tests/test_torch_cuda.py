@@ -220,14 +220,16 @@ FIVE_A_SIDE = dict(n_blue_agents=5, n_red_agents=5)
     ("joint_passage", {}, 0), ("buzz_wire", {}, 0)])
 def test_main_path_one_launch_per_step_no_sync(cuda, scenario, kwargs,
                                                 planners):
-    """One physics launch a step, one ray-cast launch per LIDAR measure
-    (one LIDAR per agent), one planner launch per AI team and step, and no
-    host sync over 5 steps."""
+    """One physics launch a step, one ray-cast launch per LIDAR group and
+    step (navigation's and flocking's four LIDARs are one group), one
+    planner launch per AI team and step, and no host sync over 5 steps."""
     env = vmt_torch.make_env(scenario, num_envs=B, device="cuda", seed=0,
                              **kwargs)
     _compare(env.world, random_step_inputs(env.world, 0.3, seed=12),
              stiff=scenario in ("joint_passage", "buzz_wire"))
     lidars = sum(len(a.sensors) for a in env.agents)
+    groups = len({id(g) for g, _ in env.world._lidar_groups.values()})
+    assert groups == (1 if lidars else 0)
     actions = [env.get_random_actions() for _ in range(5)]
     torch.cuda.synchronize()
     steps, casts = physics_cuda.LAUNCHES, raycast_cuda.LAUNCHES
@@ -239,7 +241,7 @@ def test_main_path_one_launch_per_step_no_sync(cuda, scenario, kwargs,
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert physics_cuda.LAUNCHES == steps + 5
-    assert raycast_cuda.LAUNCHES == casts + 5 * lidars
+    assert raycast_cuda.LAUNCHES == casts + 5 * groups
     assert football_policy_cuda.LAUNCHES == plans + 5 * planners
     assert all(bool(torch.isfinite(o).all()) for o in obs)
 
@@ -309,6 +311,72 @@ def test_raycast_kernel_matches_plain(cuda, axis_aligned):
         assert int(((got == 1.5) != (ref == 1.5)).sum()) == 0
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
     assert raycast_cuda.LAUNCHES == before + 2
+
+
+@pytest.mark.parametrize("axis_aligned", [False, True])
+def test_raycast_kernel_batched_matches_plain(cuda, axis_aligned):
+    """One launch from seven origins (the agent and every landmark, each
+    skipping itself) against the plain version origin by origin; a second
+    launch gives the same bits, and one launch from the agent alone the
+    same bits as its slice."""
+    pos, rot, angles, _ = _cast_scene(18, axis_aligned)
+    world, _ = build_world(dict(
+        agents=[dict(name="a", shape=("sphere", 0.03))],
+        landmarks=[dict(name="b0", shape=("box", 0.4, 0.2, False)),
+                   dict(name="b1", shape=("box", 0.3, 0.3, False)),
+                   dict(name="s0", shape=("sphere", 0.15)),
+                   dict(name="s1", shape=("sphere", 0.25)),
+                   dict(name="l0", shape=("line", 0.6)),
+                   dict(name="l1", shape=("line", 0.9))],
+    ), 8, device="cuda")
+    table = raycast_cuda.cast_table(world, [2, 3, 6], [0, 1], [4, 5])
+    origins = (6, 2, 0, 4, 3, 1, 5)
+    before = raycast_cuda.LAUNCHES
+    got = raycast_cuda.fused_cast_rays(pos, rot, angles, origins, table, 1.5)
+    again = raycast_cuda.fused_cast_rays(pos, rot, angles, origins, table,
+                                         1.5)
+    alone = raycast_cuda.fused_cast_rays(pos, rot, angles, 6, table, 1.5)
+    ref = raycast_cuda.cast_rays_plain(pos, rot, angles, origins, table, 1.5)
+    torch.cuda.synchronize()
+    assert raycast_cuda.LAUNCHES == before + 3
+    assert got.shape == (7, 30_000, 12)
+    assert torch.equal(got, again) and torch.equal(got[0], alone)
+    assert int(((got == 1.5) != (ref == 1.5)).sum()) == 0
+    assert int((ref < 1.5).sum()) > 10_000
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("scenario", ["navigation", "flocking"])
+def test_grouped_lidars_match_plain_per_origin(cuda, scenario):
+    """After 10 steps every agent's LIDAR, cast in one launch for the
+    group, against the plain version from that agent over its own table.
+    The step's observations cast the group already: measures read that
+    launch until a pose is written, and then cast once anew."""
+    env = vmt_torch.make_env(scenario, num_envs=B, device="cuda", seed=0)
+    for _ in range(10):
+        env.step(env.get_random_actions())
+    w, s = env.world, env.world.state
+    agents = [a for a in w.agents if a.sensors]
+    before = raycast_cuda.LAUNCHES
+    for a in agents:
+        a.sensors[0].measure()
+    assert raycast_cuda.LAUNCHES == before
+    s.pos = s.pos.clone()
+    got = [a.sensors[0].measure() for a in agents]
+    assert raycast_cuda.LAUNCHES == before + 1
+    hits = 0
+    for a, g in zip(agents, got):
+        x = a.sensors[0]
+        own = [e.index for e in w.entities
+               if x.entity_filter(e) and e is not a]
+        ref = raycast_cuda.cast_rays_plain(
+            s.pos, s.rot, x._angles, a.index,
+            raycast_cuda.cast_table(w, own, [], []), x._max_range)
+        cap = x._max_range
+        assert int(((g == cap) != (ref == cap)).sum()) == 0
+        torch.testing.assert_close(g, ref, rtol=1e-5, atol=1e-5)
+        hits += int((ref < cap).sum())
+    assert hits > 0
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -423,13 +491,13 @@ def test_ppo_kernel_matches_plain(cuda, name, fields, nb_tot):
     ("transport", {}, 0),
     ("transport", dict(continuous_actions=False, multidiscrete_actions=True),
      0),
-    ("navigation", {}, 8),
+    ("navigation", {}, 2),
 ])
 def test_train_step_launch_counts_no_sync(cuda, scenario, kwargs, casts):
     """Two training iterations on the card with no host sync: one PPO
     launch per epoch and minibatch, one physics launch per rollout step,
-    two casts per LIDAR and step (the step's observation and the masked
-    reset's)."""
+    two casts per LIDAR group and step (the step's observation and the
+    masked reset's, each casting navigation's four LIDARs at once)."""
     cfg = torch_ppo.PPOConfig(rollout_steps=8, epochs=2, minibatches=2,
                               fused_block=256)
     env, step, trainer = torch_ppo.init_training(scenario, 256, 0, cfg,
@@ -586,16 +654,31 @@ def test_agent_geometry_variants_are_bit_identical(cuda, poses):
                     lanes, cull, staged)
 
 
-def test_neighbor_kernel_matches_plain_random(cuda):
-    args = [torch.as_tensor(x, device="cuda")
-            for x in random_neighbor_inputs(B, 20, seed=5)]
-    before = road_geometry_cuda.LAUNCHES["neighbor_obs"]
-    got = road_geometry_cuda.fused_neighbor_obs(20, 2, 0.08, 0.04, *args)
-    ref = road_geometry.neighbor_obs_plain(20, 2, 0.08, 0.04, *args)
-    torch.cuda.synchronize()
-    assert road_geometry_cuda.LAUNCHES["neighbor_obs"] == before + 1
-    report = neighbor_diff(got, ref)
-    assert report["nd_equal"] and report["bad"] == 0, report
+@pytest.mark.parametrize("A,k", [(6, 1), (6, 2), (20, 1), (20, 2), (33, 1),
+                                 (33, 2), (64, 1), (64, 2)])
+def test_neighbor_kernel_matches_plain_random(cuda, A, k):
+    """A warp per env at A = 6 to 64 (two agents a lane past 32), from
+    random inputs and from the same with every other env's dn on a coarse
+    grid (rounds meet ties): nd bit-equal to the plain version, the rest
+    within 1e-5 + 1e-5|ref|; a second launch gives the same bits."""
+    pos, rot, vel, dn = random_neighbor_inputs(B, A, seed=5)
+    tied = dn.copy()
+    tied[::2] = np.round(tied[::2] * 2) / 2
+    for d in (tied, dn):
+        args = [torch.as_tensor(x, device="cuda")
+                for x in (pos, rot, vel, d)]
+        before = road_geometry_cuda.LAUNCHES["neighbor_obs"]
+        got = road_geometry_cuda.fused_neighbor_obs(A, k, 0.08, 0.04, *args)
+        again = road_geometry_cuda.fused_neighbor_obs(A, k, 0.08, 0.04,
+                                                      *args)
+        ref = road_geometry.neighbor_obs_plain(A, k, 0.08, 0.04, *args)
+        torch.cuda.synchronize()
+        assert road_geometry_cuda.LAUNCHES["neighbor_obs"] == before + 2
+        report = neighbor_diff(got, ref)
+        assert report["nd_equal"] and report["bad"] == 0, report
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if (A, k) != (20, 2):
+        return
     with pytest.raises(ValueError, match="mixed devices"):
         road_geometry_cuda.fused_neighbor_obs(20, 2, 0.08, 0.04,
                                               args[0].cpu(), *args[1:])

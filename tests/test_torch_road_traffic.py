@@ -531,23 +531,32 @@ def test_geometry_kernels_on_the_host_exact_at_touching_pairs(
         np.testing.assert_array_equal(got[i].numpy(), ref[i].numpy())
 
 
-def test_neighbor_kernel_on_the_host_matches_plain(host_kernels):
-    """The neighbour kernel's per-thread body against
-    ``neighbor_obs_plain``: nd bit-equal, the rest within 1e-5 +
-    1e-5|ref|."""
+@pytest.mark.parametrize("A,k", [(6, 1), (6, 2), (20, 1), (20, 2), (33, 1),
+                                 (33, 2), (64, 1), (64, 2)])
+def test_neighbor_kernel_on_the_host_matches_plain(host_kernels, A, k):
+    """The neighbour kernel's warp-per-env body (load, rectangles, each
+    lane's selection, the staged stores; agents i and i + 32 in turn past
+    32) against ``neighbor_obs_plain``: nd bit-equal, the rest within 1e-5
+    + 1e-5|ref|; from random inputs, and from the same with every other
+    env's dn rounded to a coarse grid, so that rounds meet ties, which the
+    first index must win."""
     if host_kernels is None:
         pytest.skip("needs a host C++ compiler")
-    A, k, half_l, half_w = 20, 2, 0.08, 0.04
-    inputs = [torch.as_tensor(x)
-              for x in random_neighbor_inputs(256, A, seed=3)]
-    ref = rg.neighbor_obs_plain(A, k, half_l, half_w, *inputs)
-    got = [torch.empty_like(r) for r in ref]
-    err = host_kernels.vmt_road_neighbor_obs(
-        *(x.data_ptr() for x in inputs), *(g.data_ptr() for g in got), 256,
-        A, k, half_l, half_w, None)
-    assert err == 0
-    report = neighbor_diff(got, ref)
-    assert report["nd_equal"] and report["bad"] == 0, report
+    half_l, half_w, B = 0.08, 0.04, 256
+    pos, rot, vel, dn = random_neighbor_inputs(B, A, seed=3)
+    tied = dn.copy()
+    tied[::2] = np.round(tied[::2] * 2) / 2
+    for d in (dn, tied):
+        inputs = [torch.as_tensor(x) for x in (pos, rot, vel, d)]
+        ref = rg.neighbor_obs_plain(A, k, half_l, half_w, *inputs)
+        got = [torch.empty_like(r) for r in ref]
+        err = host_kernels.vmt_road_neighbor_obs(
+            *(x.data_ptr() for x in inputs), *(g.data_ptr() for g in got),
+            B, A, k, half_l, half_w, None)
+        assert err == 0
+        report = neighbor_diff(got, ref)
+        assert report["nd_equal"] and report["bad"] == 0, report
+        assert torch.equal(got[2], ref[2])  # rot_rel: one subtraction
 
 
 def test_kernel_struct_matches_ctypes_mirror(tmp_path):

@@ -273,6 +273,39 @@ def posed_step_inputs(world, entities, cfg, seed):
             s.pos.new_zeros((B, len(world._dyn_gravity_names), 2)))
 
 
+def poses_at_cast_reach(world, origin, angles, max_range, seed, B,
+                        inside=0.1):
+    """Ray-cast poses ``(pos [B, N, 2], rot [B, N, 1])`` float32 numpy, on
+    the edge of csrc/raycast.cu's reach test: entity ``origin`` uniform in
+    [-1, 1]^2 with a random heading, and every other entity at max_range +
+    its reach (a sphere's radius, half a box's diagonal, half a line's
+    length) less up to ``inside`` from it, toward one of the rays of the
+    base ``angles`` [R] give or take 0.3 rad, with a random heading; so
+    rays meet entities near their far side, at distances just under
+    max_range."""
+    rng = np.random.RandomState(seed)
+    N = len(world.entities)
+    pos = np.zeros((B, N, 2), np.float32)
+    rot = rng.uniform(-math.pi, math.pi, (B, N, 1)).astype(np.float32)
+    pos[:, origin] = rng.uniform(-1.0, 1.0, (B, 2))
+    for e in world.entities:
+        if e.index == origin:
+            continue
+        shape = e.shape
+        if isinstance(shape, Sphere):
+            reach = shape.radius
+        elif isinstance(shape, Box):
+            reach = 0.5 * math.hypot(shape.length, shape.width)
+        else:
+            reach = 0.5 * shape.length
+        d = max_range + reach - rng.uniform(0.0, inside, B)
+        phi = (np.asarray(angles, np.float64)[rng.randint(len(angles), size=B)]
+               + rot[:, origin, 0] + rng.uniform(-0.3, 0.3, B))
+        pos[:, e.index, 0] = pos[:, origin, 0] + d * np.cos(phi)
+        pos[:, e.index, 1] = pos[:, origin, 1] + d * np.sin(phi)
+    return pos, rot
+
+
 def jax_state_arrays(jax_state):
     """A JAX ``WorldState`` as the numpy dict that
     ``utils.state_from_numpy`` loads (``key`` and ``phys_pack`` left out)."""

@@ -9,9 +9,9 @@ kernel (``ops/physics_cuda.py``) for worlds it supports, and
 ``_step_core`` — the plain PyTorch version and the kernel's reference —
 for the rest.  Joints (``core/joints.py``) become a static constraint
 table whose forces come first in every substep, before the contact
-classes.  ``cast_rays`` (the LIDAR) runs the ray-cast kernel
-(``ops/raycast_cuda.py``) on CUDA tensors and its plain version on CPU
-tensors.
+classes.  ``cast_rays`` and ``measure_lidar`` (the LIDAR, every LIDAR
+of a group in one launch) run the ray-cast kernel (``ops/raycast_cuda.py``)
+on CUDA tensors and its plain version on CPU tensors.
 """
 from __future__ import annotations
 
@@ -52,6 +52,46 @@ from vectorizedmultiagentsimulator_tpu_torch.utils import (
 Tensor = torch.Tensor
 
 PAIR_CLASSES = ("ss", "ls", "ll", "bs", "bl", "bb")
+
+
+def _version(x: Tensor):
+    """``x``'s version counter, or None for an inference tensor (which
+    keeps none)."""
+    try:
+        return x._version
+    except RuntimeError:
+        return None
+
+
+class _CastGroup:
+    """LIDARs cast in one launch: their agents (``origins``), shared base
+    angles, ``max_range`` and cast table.  Holds the last cast ``[O, B,
+    R]`` with what it read: the very ``pos`` and ``rot`` tensors, their
+    versions, the result's own version and the grad mode.  The world
+    replaces ``pos`` and ``rot`` on every write and ``bind`` swaps the
+    state, so any pose change, an in-place one included, casts anew."""
+
+    __slots__ = ("origins", "angles", "max_range", "table", "out", "read")
+
+    def __init__(self, origins, angles, max_range, table):
+        self.origins, self.angles = origins, angles
+        self.max_range, self.table = max_range, table
+        self.out, self.read = None, None
+
+    def cast(self, state: WorldState) -> Tensor:
+        pos, rot, out = state.pos, state.rot, self.out
+        if out is not None:
+            p, r, versions = self.read
+            if (p is pos and r is rot and None not in versions
+                    and versions == (_version(pos), _version(rot),
+                                     _version(out), torch.is_grad_enabled())):
+                return out
+        out = raycast_cuda.fused_cast_rays(pos, rot, self.angles, self.origins,
+                                           self.table, self.max_range)
+        self.out = out
+        self.read = (pos, rot, (_version(pos), _version(rot), _version(out),
+                                torch.is_grad_enabled()))
+        return out
 
 
 class World:
@@ -104,8 +144,10 @@ class World:
         self._use_kernel = False
         self._kernel_tables = None
         # Ray-cast tables per (origin entity index, entity filter), built
-        # at the first cast (cast_rays).
+        # at the first cast (cast_rays); LIDAR groups per (LIDAR, agent,
+        # filter), built at the first measure (measure_lidar).
         self._cast_tables: Dict[tuple, raycast_cuda.CastTable] = {}
+        self._lidar_groups: Dict[tuple, Tuple[_CastGroup, int]] = {}
 
     # ------------------------------------------------------------------ #
     # Construction API
@@ -947,6 +989,26 @@ class World:
     # ------------------------------------------------------------------ #
     # Ray casting (core.py:1628-1786)
     # ------------------------------------------------------------------ #
+    def _cast_entities(self, entity_filter, origins) -> raycast_cuda.CastTable:
+        """The entities that ``entity_filter`` selects, by shape class, as a
+        cast table: what a ray from each of ``origins`` (entities) meets,
+        each origin leaving itself out."""
+        classes = {shp.Sphere: [], shp.Box: [], shp.Line: []}
+        for e in self.entities:
+            if not entity_filter(e):
+                continue
+            for origin in origins:
+                assert e is origin or (e.collides(origin) and origin.collides(
+                    e)), "Rays are only casted among collidables"
+            if type(e.shape) not in classes:
+                raise RuntimeError(
+                    f"Shape {e.shape} currently not handled by cast_ray"
+                )
+            classes[type(e.shape)].append(e.index)
+        return raycast_cuda.cast_table(
+            self, classes[shp.Sphere], classes[shp.Box], classes[shp.Line]
+        )
+
     def cast_rays(
         self,
         entity: Entity,
@@ -958,30 +1020,61 @@ class World:
         entity that ``entity_filter`` selects, capped at ``max_range``.
         ``angles`` is ``[B, R]`` in the world frame, or ``[R]`` relative to
         ``entity``'s heading (a LIDAR's base angles).  One call is one
-        launch of the ray-cast kernel on CUDA tensors."""
+        launch of the ray-cast kernel on CUDA tensors (one origin)."""
         key = (entity.index, entity_filter)
         table = self._cast_tables.get(key)
         if table is None:
-            classes = {shp.Sphere: [], shp.Box: [], shp.Line: []}
-            for e in self.entities:
-                if entity is e or not entity_filter(e):
-                    continue
-                assert e.collides(entity) and entity.collides(
-                    e
-                ), "Rays are only casted among collidables"
-                if type(e.shape) not in classes:
-                    raise RuntimeError(
-                        f"Shape {e.shape} currently not handled by cast_ray"
-                    )
-                classes[type(e.shape)].append(e.index)
-            table = raycast_cuda.cast_table(
-                self, classes[shp.Sphere], classes[shp.Box], classes[shp.Line]
-            )
-            self._cast_tables[key] = table
+            table = self._cast_tables[key] = self._cast_entities(
+                entity_filter, (entity,))
         s = self._state
         return raycast_cuda.fused_cast_rays(
             s.pos, s.rot, angles, entity.index, table, max_range
         )
+
+    def measure_lidar(self, lidar) -> Tensor:
+        """``lidar``'s distances ``[B, R]`` (``Lidar.measure``).  The LIDARs
+        of the world's agents that share a filter, base angles and
+        ``max_range`` form a group, cast in one launch from all their agents
+        at the group's first measure; the other members read their slice
+        until the state's ``pos`` or ``rot`` is written or grad mode
+        changes (``_CastGroup``)."""
+        found = self._lidar_groups.get((lidar, lidar.agent,
+                                        lidar.entity_filter))
+        if found is None:
+            self._group_lidars(lidar)
+            found = self._lidar_groups[(lidar, lidar.agent,
+                                        lidar.entity_filter)]
+        group, slot = found
+        return group.cast(self._state)[slot]
+
+    def _group_lidars(self, lidar):
+        """Group every LIDAR of the world's agents, and ``lidar``, by (filter,
+        base angles, max_range), at most MAX_ORIGINS agents a group.  A
+        group's table is every entity its filter selects and each agent
+        skips itself, so a member's rays meet exactly its own table: the
+        union of the members' tables without its own agent."""
+        lidars = [x for a in self._agents for x in a.sensors
+                  if hasattr(x, "angles_key")]
+        if not any(x is lidar for x in lidars):
+            lidars.append(lidar)
+        by_key: Dict[tuple, list] = {}
+        for x in lidars:
+            by_key.setdefault(
+                (x.entity_filter, x.angles_key, float(x._max_range)), []
+            ).append(x)
+        self._lidar_groups = {}
+        for (entity_filter, _, max_range), members in by_key.items():
+            agents = list({id(x.agent): x.agent for x in members}.values())
+            table = self._cast_entities(entity_filter, agents)
+            for start in range(0, len(agents), raycast_cuda.MAX_ORIGINS):
+                chunk = agents[start:start + raycast_cuda.MAX_ORIGINS]
+                slot = {id(a): i for i, a in enumerate(chunk)}
+                group = _CastGroup(tuple(a.index for a in chunk),
+                                   members[0]._angles, max_range, table)
+                for x in members:
+                    if id(x.agent) in slot:
+                        self._lidar_groups[(x, x.agent, x.entity_filter)] = (
+                            group, slot[id(x.agent)])
 
     def cast_ray(
         self,

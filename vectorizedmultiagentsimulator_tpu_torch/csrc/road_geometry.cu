@@ -83,9 +83,14 @@
 // H100: the bytes written (the [B, A, A] matrix) once the boxes cull most
 // pairs.
 //
-// Neighbour observations: one thread per (env, agent); a row of dn and the
-// chosen neighbours' poses read, 28 floats written a thread, about 40 MB
-// at road_traffic@10k: bytes bound it.
+// Neighbour observations.  One warp per env: the env's A x A block of dn
+// (contiguous), its poses and velocities are loaded coalesced into shared
+// memory (dn's rows at an odd stride); each agent's rectangle and speed
+// are made once for the env; lane i runs agent i's k rounds of first-
+// minimum selection from shared memory (agents i and i + 32 in turn when
+// A > 32); each chunk's outputs (14 k floats an agent, contiguous in each
+// of the five outputs) are staged in shared memory and stored coalesced.  About 42 MB read and written at road_traffic@10k: bytes
+// bound it (12.7 us at 3.35 TB/s).
 //
 // Parity with the plain version.  The outputs are partly discrete: a
 // closest index that moves by one shifts the short-term path by a whole
@@ -124,7 +129,7 @@ struct float2 {
 };
 #endif
 
-#define VMT_THREADS 128          // neighbour kernel: threads a block
+#define VMT_NEIGHBOR_WARPS 4     // neighbour kernel: envs (a warp each) a block
 #define VMT_GEOM_THREADS 256     // agent geometry through L1: threads a block
 // ... and the blocks an SM its registers are set for (64 a thread): the
 // kernel is latency-bound, and 32 warps an SM hid more of it than the 24
@@ -316,6 +321,19 @@ DEV void rectangle_cs(float px, float py, float c, float s, float half_l,
     vx[v] = bx[v] * c - by[v] * s + px;
     vy[v] = bx[v] * s + by[v] * c + py;
   }
+}
+
+// sinf(x) and cosf(x): on the card one sincosf, the same functions with
+// one range reduction (chip_smoke.py's phase 2 finds the kernels'
+// results bit-equal to the plain versions, which call PyTorch's cos and
+// sin).
+DEV void sin_cos(float x, float* s, float* c) {
+#ifdef __CUDACC__
+  sincosf(x, s, c);
+#else
+  *s = sinf(x);
+  *c = cosf(x);
+#endif
 }
 
 DEV void rectangle(float px, float py, float th, float half_l, float half_w,
@@ -690,56 +708,152 @@ DEV void pair_store(long long b, int lane, int nl, const float* scratch,
 }
 
 // ---- neighbour observations ---- //
-// The k nearest other agents of (env, agent i) number q in its ego frame.
-// Round r takes the first least entry of row i of dn among those not yet
-// taken (a taken entry counts as +inf, as the plain version sets it).
-DEV void neighbor_obs_one(long long q, const float* __restrict__ pos,
-                          const float* __restrict__ rot,
-                          const float* __restrict__ vel,
-                          const float* __restrict__ dn,
-                          float* __restrict__ nd, float* __restrict__ pe,
-                          float* __restrict__ rr, float* __restrict__ ve,
-                          float* __restrict__ vt, int A, int k, float half_l,
-                          float half_w) {
-  const long long b = q / A;
-  const float* row = dn + q * A;
-  const float px = pos[2 * q], py = pos[2 * q + 1], th = rot[q];
-  const float c = cosf(-th), s = sinf(-th);
-  unsigned long long taken = 0ull;
+// One env's shared scratch, in floats, for A agents and k rounds:
+//   dn [A][S]: the env's rows of dn, S = A | 1 (an odd stride: the lanes'
+//              rows start in distinct banks);
+//   px, py, th, vx, vy, va [A]: the poses, velocities and speeds;
+//   wx, wy [A][4]: each agent's rectangle corners, made once;
+//   out [min(A, 32) * 14 k]: the outputs of a chunk of up to 32 agents,
+//              slab by slab (nd, pe, rr, ve, vt), each as contiguous as
+//              in the output tensors.
+HD int nb_stride(int A) { return A | 1; }
+HD int neighbor_floats(int A, int k) {
+  return A * nb_stride(A) + 14 * A + (A < 32 ? A : 32) * 14 * k;
+}
+
+struct NeighborScratch {
+  float *dn, *px, *py, *th, *vx, *vy, *va, *wx, *wy, *out;
+};
+
+DEV NeighborScratch neighbor_scratch(float* sc, int A) {
+  NeighborScratch n;
+  n.dn = sc;
+  float* f = sc + A * nb_stride(A);
+  n.px = f;
+  n.py = f + A;
+  n.th = f + 2 * A;
+  n.vx = f + 3 * A;
+  n.vy = f + 4 * A;
+  n.va = f + 5 * A;
+  n.wx = f + 6 * A;
+  n.wy = f + 10 * A;
+  n.out = f + 14 * A;
+  return n;
+}
+
+// Phase 1, lane `lane` of `nl`: env b's dn rows, poses and velocities,
+// neighbouring lanes on neighbouring floats.
+DEV void neighbor_load(long long b, int lane, int nl,
+                       const float* __restrict__ pos,
+                       const float* __restrict__ rot,
+                       const float* __restrict__ vel,
+                       const float* __restrict__ dn, const NeighborScratch& s,
+                       int A) {
+  const int S = nb_stride(A);
+  const float* d = dn + b * A * A;
+  // Element e = i * A + j, walked in steps of nl without a division.
+  const int di = nl / A, dj = nl - di * A;
+  int i = lane / A, j = lane - (lane / A) * A;
+  for (int e = lane; e < A * A; e += nl) {
+    s.dn[i * S + j] = d[e];
+    i += di;
+    j += dj;
+    if (j >= A) {
+      j -= A;
+      ++i;
+    }
+  }
+  for (int e = lane; e < 2 * A; e += nl) {
+    (e & 1 ? s.py : s.px)[e >> 1] = pos[b * 2 * A + e];
+    (e & 1 ? s.vy : s.vx)[e >> 1] = vel[b * 2 * A + e];
+  }
+  for (int e = lane; e < A; e += nl) s.th[e] = rot[b * A + e];
+}
+
+// Phase 2: each agent's rectangle corners and speed, once for the env.
+DEV void neighbor_prep(int lane, int nl, const NeighborScratch& s, int A,
+                       float half_l, float half_w) {
+  for (int j = lane; j < A; j += nl) {
+    float wx[5], wy[5], sj, cj;
+    sin_cos(s.th[j], &sj, &cj);
+    rectangle_cs(s.px[j], s.py[j], cj, sj, half_l, half_w, wx, wy);
+    for (int v = 0; v < 4; ++v) {
+      s.wx[j * 4 + v] = wx[v];
+      s.wy[j * 4 + v] = wy[v];
+    }
+    const float sq = s.vx[j] * s.vx[j] + s.vy[j] * s.vy[j];
+    s.va[j] = sq > 0.0f ? sqrtf(sq) : 0.0f;
+  }
+}
+
+// Phase 3, lane l of the chunk of n agents from i0: agent i = i0 + l's k
+// nearest others in its ego frame, into the chunk's slabs.  Round r takes
+// the first least entry of row i of dn; the taken entry is then set to
+// +inf in the shared row, as the plain version sets it.
+DEV void neighbor_select(int l, int i0, int n, const NeighborScratch& s,
+                         int A, int k) {
+  const int i = i0 + l;
+  float* row = s.dn + i * nb_stride(A);
+  const float px = s.px[i], py = s.py[i], th = s.th[i];
+  float c, sn;
+  sin_cos(-th, &sn, &c);
+  const int nk = n * k;
+  float* nd = s.out;
+  float* pe = nd + nk;
+  float* rr = pe + 2 * nk;
+  float* ve = rr + nk;
+  float* vt = ve + 2 * nk;
   for (int r = 0; r < k; ++r) {
-    float best = 0.0f;
+    float best = row[0];
     int pick = 0;
-    for (int j = 0; j < A; ++j) {
-      const float v = ((taken >> j) & 1ull) ? INFINITY : row[j];
-      if (j == 0 || v < best) {
+    for (int j = 1; j < A; ++j) {
+      const float v = row[j];
+      if (v < best) {
         best = v;
         pick = j;
       }
     }
-    taken |= 1ull << pick;
-    const long long o = q * k + r;
+    row[pick] = INFINITY;
+    const int o = l * k + r;
     nd[o] = best;
-
-    const long long jj = b * A + pick;
-    const float pjx = pos[2 * jj], pjy = pos[2 * jj + 1], thj = rot[jj];
-    const float vjx = vel[2 * jj], vjy = vel[2 * jj + 1];
-    const float sq = vjx * vjx + vjy * vjy;
-    const float va = sq > 0.0f ? sqrtf(sq) : 0.0f;
-    const float relx = pjx - px, rely = pjy - py;
-    pe[2 * o] = relx * c - rely * s;
-    pe[2 * o + 1] = relx * s + rely * c;
-    const float rot_rel = thj - th;
+    const float relx = s.px[pick] - px, rely = s.py[pick] - py;
+    pe[2 * o] = relx * c - rely * sn;
+    pe[2 * o + 1] = relx * sn + rely * c;
+    const float rot_rel = s.th[pick] - th;
     rr[o] = rot_rel;
-    ve[2 * o] = va * cosf(rot_rel);
-    ve[2 * o + 1] = va * sinf(rot_rel);
-    float wx[5], wy[5];
-    rectangle(pjx, pjy, thj, half_l, half_w, wx, wy);
+    const float va = s.va[pick];
+    float sr, cr;
+    sin_cos(rot_rel, &sr, &cr);
+    ve[2 * o] = va * cr;
+    ve[2 * o + 1] = va * sr;
     for (int v = 0; v < 4; ++v) {
-      const float ux = wx[v] - px, uy = wy[v] - py;
-      vt[(o * 4 + v) * 2] = ux * c - uy * s;
-      vt[(o * 4 + v) * 2 + 1] = ux * s + uy * c;
+      const float ux = s.wx[pick * 4 + v] - px, uy = s.wy[pick * 4 + v] - py;
+      vt[(o * 4 + v) * 2] = ux * c - uy * sn;
+      vt[(o * 4 + v) * 2 + 1] = ux * sn + uy * c;
     }
   }
+}
+
+// Phase 4: the chunk's slabs to the outputs (the chunk's n agents from i0
+// of env b are n * 14 k contiguous floats, slab by slab), neighbouring
+// lanes on neighbouring floats.
+DEV void neighbor_store(long long b, int lane, int nl, int i0, int n,
+                        const NeighborScratch& s, float* __restrict__ nd,
+                        float* __restrict__ pe, float* __restrict__ rr,
+                        float* __restrict__ ve, float* __restrict__ vt, int A,
+                        int k) {
+  const long long q = (b * A + i0) * k;  // the chunk's first (agent, round)
+  const int nk = n * k;
+  const float* src = s.out;
+  for (int e = lane; e < nk; e += nl) nd[q + e] = src[e];
+  src += nk;
+  for (int e = lane; e < 2 * nk; e += nl) pe[2 * q + e] = src[e];
+  src += 2 * nk;
+  for (int e = lane; e < nk; e += nl) rr[q + e] = src[e];
+  src += nk;
+  for (int e = lane; e < 2 * nk; e += nl) ve[2 * q + e] = src[e];
+  src += 2 * nk;
+  for (int e = lane; e < 8 * nk; e += nl) vt[8 * q + e] = src[e];
 }
 
 #ifdef __CUDACC__
@@ -831,17 +945,30 @@ pair_collisions_kernel(const float* __restrict__ pos,
   pair_store(b, lane, 32, scratch, vertices, agents, p.A);
 }
 
-__global__ void __launch_bounds__(VMT_THREADS)
+__global__ void __launch_bounds__(32 * VMT_NEIGHBOR_WARPS)
 neighbor_obs_kernel(const float* __restrict__ pos,
                     const float* __restrict__ rot,
                     const float* __restrict__ vel,
                     const float* __restrict__ dn, float* nd, float* pe,
                     float* rr, float* ve, float* vt, int B, int A, int k,
                     float half_l, float half_w) {
-  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= (long long)B * A) return;
-  neighbor_obs_one(q, pos, rot, vel, dn, nd, pe, rr, ve, vt, A, k, half_l,
-                   half_w);
+  extern __shared__ float neighbor_scratch_all[];
+  const int w = (int)(threadIdx.x >> 5), lane = (int)(threadIdx.x & 31);
+  const long long b = (long long)blockIdx.x * (blockDim.x >> 5) + w;
+  if (b >= B) return;
+  const NeighborScratch s = neighbor_scratch(
+      neighbor_scratch_all + (size_t)w * neighbor_floats(A, k), A);
+  neighbor_load(b, lane, 32, pos, rot, vel, dn, s, A);
+  __syncwarp();
+  neighbor_prep(lane, 32, s, A, half_l, half_w);
+  __syncwarp();
+  for (int i0 = 0; i0 < A; i0 += 32) {
+    const int n = A - i0 < 32 ? A - i0 : 32;
+    if (lane < n) neighbor_select(lane, i0, n, s, A, k);
+    __syncwarp();
+    neighbor_store(b, lane, 32, i0, n, s, nd, pe, rr, ve, vt, A, k);
+    __syncwarp();
+  }
 }
 
 int blocks_for(long long n, int per_block) {
@@ -995,26 +1122,47 @@ extern "C" int vmt_road_pair_collisions(const float* pos, const float* rot,
 
 // Neighbour observations: nd [B, A, k], pe [B, A, k, 2], rr [B, A, k], ve
 // [B, A, k, 2], vt [B, A, k, 4, 2], raw (not normalised).  1 <= k < A <= 64.
+// A warp takes an env; a block takes up to VMT_NEIGHBOR_WARPS envs, fewer
+// where their scratch would pass VMT_MAX_SMEM.
 extern "C" int vmt_road_neighbor_obs(const float* pos, const float* rot,
                                      const float* vel, const float* dn,
                                      float* nd, float* pe, float* rr,
                                      float* ve, float* vt, int B, int A,
                                      int k, float half_l, float half_w,
                                      void* stream) {
-  const long long n = (long long)B * A;
+  const bool bad = B <= 0 || A > 64 || k < 1 || k >= A;
 #ifdef __CUDACC__
-  if (B <= 0 || A > 64 || k < 1 || k >= A) return (int)cudaErrorInvalidValue;
-  neighbor_obs_kernel<<<blocks_for(n, VMT_THREADS), VMT_THREADS, 0,
+  if (bad) return (int)cudaErrorInvalidValue;
+  const int per_env = neighbor_floats(A, k) * 4;
+  int warps = VMT_MAX_SMEM / per_env;
+  warps = warps < VMT_NEIGHBOR_WARPS ? warps : VMT_NEIGHBOR_WARPS;
+  const int smem = warps * per_env;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(neighbor_obs_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  neighbor_obs_kernel<<<blocks_for(B, warps), 32 * warps, smem,
                         (cudaStream_t)stream>>>(pos, rot, vel, dn, nd, pe,
                                                 rr, ve, vt, B, A, k, half_l,
                                                 half_w);
   return (int)cudaGetLastError();
 #else
   (void)stream;
-  if (B <= 0 || A > 64 || k < 1 || k >= A) return 1;
-  for (long long q = 0; q < n; ++q)
-    neighbor_obs_one(q, pos, rot, vel, dn, nd, pe, rr, ve, vt, A, k, half_l,
-                     half_w);
+  if (bad) return 1;
+  std::vector<float> scratch(neighbor_floats(A, k));
+  const NeighborScratch s = neighbor_scratch(scratch.data(), A);
+  for (long long b = 0; b < B; ++b) {
+    for (int lane = 0; lane < 32; ++lane)
+      neighbor_load(b, lane, 32, pos, rot, vel, dn, s, A);
+    for (int lane = 0; lane < 32; ++lane)
+      neighbor_prep(lane, 32, s, A, half_l, half_w);
+    for (int i0 = 0; i0 < A; i0 += 32) {
+      const int n = A - i0 < 32 ? A - i0 : 32;
+      for (int lane = 0; lane < n; ++lane)
+        neighbor_select(lane, i0, n, s, A, k);
+      for (int lane = 0; lane < 32; ++lane)
+        neighbor_store(b, lane, 32, i0, n, s, nd, pe, rr, ve, vt, A, k);
+    }
+  }
   return 0;
 #endif
 }

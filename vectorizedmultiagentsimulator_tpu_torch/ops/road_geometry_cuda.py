@@ -324,25 +324,38 @@ def launch_geometry(tables: PathTables, with_collisions: bool, pos: Tensor,
     return out[:5] + (vertices,) + out[5:] + (agents,)
 
 
+# The neighbour kernel's operand layouts checked so far: (A, k, and each
+# operand's shape, strides, dtype and device).  A layout is checked once.
+_NEIGHBOR_CHECKED = set()
+
+
 def launch_neighbor_obs(A: int, k: int, half_l: float, half_w: float,
                         pos: Tensor, rot: Tensor, vel: Tensor, dn: Tensor):
     """Launch the neighbour kernel on PyTorch's current stream; returns
-    ``neighbor_obs_plain``'s outputs, allocated here."""
+    ``neighbor_obs_plain``'s outputs, contiguous views of one buffer
+    allocated here."""
     dev = pos.device
-    if dev.type != "cuda":
-        raise ValueError(f"the kernel runs on CUDA tensors, got {dev}")
-    if not 1 <= k < A <= 64:
-        raise ValueError(f"the kernel takes 1 <= k < A <= 64, got k={k},"
-                         f" A={A}")
+    key = (A, k) + tuple((x.shape, x.stride(), x.dtype, x.device)
+                         for x in (pos, rot, vel, dn))
+    if key not in _NEIGHBOR_CHECKED:
+        if dev.type != "cuda":
+            raise ValueError(f"the kernel runs on CUDA tensors, got {dev}")
+        if not 1 <= k < A <= 64:
+            raise ValueError(f"the kernel takes 1 <= k < A <= 64, got k={k},"
+                             f" A={A}")
+        B = pos.shape[0]
+        _check(dev, [("pos", pos, (B, A, 2), torch.float32),
+                     ("rot", rot, (B, A), torch.float32),
+                     ("vel", vel, (B, A, 2), torch.float32),
+                     ("dn", dn, (B, A, A), torch.float32)])
+        _NEIGHBOR_CHECKED.add(key)
     B = pos.shape[0]
-    _check(dev, [("pos", pos, (B, A, 2), torch.float32),
-                 ("rot", rot, (B, A), torch.float32),
-                 ("vel", vel, (B, A, 2), torch.float32),
-                 ("dn", dn, (B, A, A), torch.float32)])
-    f32 = dict(dtype=torch.float32, device=dev)
-    outs = (torch.empty((B, A, k), **f32), torch.empty((B, A, k, 2), **f32),
-            torch.empty((B, A, k), **f32), torch.empty((B, A, k, 2), **f32),
-            torch.empty((B, A, k, 4, 2), **f32))
+    n = B * A * k
+    nd, pe, rr, ve, vt = torch.empty(
+        14 * n, dtype=torch.float32, device=dev).split(
+            (n, 2 * n, n, 2 * n, 8 * n))
+    outs = (nd.view(B, A, k), pe.view(B, A, k, 2), rr.view(B, A, k),
+            ve.view(B, A, k, 2), vt.view(B, A, k, 4, 2))
     err = _library("vmt_road_neighbor_obs")(
         pos.data_ptr(), rot.data_ptr(), vel.data_ptr(), dn.data_ptr(),
         *(o.data_ptr() for o in outs), B, A, k, half_l, half_w, _stream(dev),
@@ -405,15 +418,18 @@ class _FusedGeometry(torch.autograd.Function):
         return _replay(ctx, plain, grads, 2)
 
 
+def _neighbor_obs(A, k, half_l, half_w, pos, rot, vel, dn):
+    if _on((pos, rot, vel, dn)) == "cuda":
+        return launch_neighbor_obs(A, k, half_l, half_w, pos, rot, vel, dn)
+    return rg.neighbor_obs_plain(A, k, half_l, half_w, pos, rot, vel, dn)
+
+
 class _FusedNeighborObs(torch.autograd.Function):
     @staticmethod
     def forward(ctx, A, k, half_l, half_w, pos, rot, vel, dn):
         ctx.save_for_backward(pos, rot, vel, dn)
         ctx.static = (A, k, half_l, half_w)
-        if _on((pos, rot, vel, dn)) == "cuda":
-            return launch_neighbor_obs(A, k, half_l, half_w, pos, rot, vel,
-                                       dn)
-        return rg.neighbor_obs_plain(A, k, half_l, half_w, pos, rot, vel, dn)
+        return _neighbor_obs(A, k, half_l, half_w, pos, rot, vel, dn)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -436,4 +452,8 @@ def fused_neighbor_obs(A: int, k: int, half_l: float, half_w: float,
     """``road_geometry.neighbor_obs_plain``'s outputs: the kernel on CUDA
     tensors, the plain version on CPU tensors; differentiable through the
     plain version."""
-    return _FusedNeighborObs.apply(A, k, half_l, half_w, pos, rot, vel, dn)
+    if torch.is_grad_enabled() and (pos.requires_grad or rot.requires_grad
+                                    or vel.requires_grad or dn.requires_grad):
+        return _FusedNeighborObs.apply(A, k, half_l, half_w, pos, rot, vel,
+                                       dn)
+    return _neighbor_obs(A, k, half_l, half_w, pos, rot, vel, dn)

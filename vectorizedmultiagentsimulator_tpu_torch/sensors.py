@@ -1,8 +1,10 @@
 """Sensors (reference ``vmas/simulator/sensors.py``).
 
 PyTorch counterpart of ``vectorizedmultiagentsimulator_tpu/sensors.py``.
-``Lidar.measure`` is one ``World.cast_rays`` call with the LIDAR's base
-angles, which the ray-cast kernel turns into world-frame angles itself.
+``Lidar.measure`` is ``World.measure_lidar``: the world casts every
+LIDAR that shares this one's filter, base angles and max_range in one
+launch of the ray-cast kernel, which turns the base angles into
+world-frame angles itself, and each LIDAR reads its own slice.
 Rendering is not ported: ``render`` returns no geometry.
 """
 from __future__ import annotations
@@ -59,10 +61,12 @@ class Lidar(Sensor):
             angles = np.linspace(angle_start, angle_end, n_rays + 1)[:n_rays]
         else:
             angles = np.linspace(angle_start, angle_end, n_rays)
-        # [R] angles relative to the agent's heading, on the world's device.
+        # [R] angles relative to the agent's heading, on the world's device,
+        # and their float32 values on the host (World groups LIDARs by them).
         self._angles = torch.as_tensor(
             angles, dtype=torch.float32, device=world.device
         )
+        self.angles_key = tuple(float(a) for a in np.float32(angles))
         self._max_range = max_range
         self._entity_filter = entity_filter
 
@@ -77,12 +81,7 @@ class Lidar(Sensor):
     def measure(self) -> torch.Tensor:
         """Distances ``[B, n_rays]`` to the first entity the filter
         selects along each ray, capped at ``max_range``."""
-        return self._world.cast_rays(
-            self.agent,
-            self._angles,
-            max_range=self._max_range,
-            entity_filter=self.entity_filter,
-        )
+        return self._world.measure_lidar(self)
 
     def render(self, env_index: int = 0) -> list:
         return []
