@@ -58,11 +58,16 @@ Phases, one line each:
      time), its bound and the plain version's time, at transport@4096 and
      at the same shapes with hidden 256.  Football's planner:
      random inputs at 30k envs for 1, 3 and 5 teammates, with and without
-     value noise, and the real inputs of football 5v5@30k after 10 steps;
-     for each, max |kernel - plain| over the rows that pick the plain
-     version's candidate, the rows that pick another (each must be a near
-     tie: its value within 1e-6 of the best), the time of a launch (CUDA
-     events and device time), the plain version's time and the bound.
+     value noise, a third of the envs with exact ties (mirrored
+     candidates), the draws scaled in the kernel, curr_target, the ball
+     and the nets strided views of a stacked state, and the real inputs of
+     football 5v5@30k after 10 steps; for each, max |kernel - plain| over
+     the rows that pick the plain version's candidate, the rows that pick
+     another (each must be a near tie: its value within 1e-6 of the best),
+     the time of a launch (CUDA events and device time), the plain
+     version's time and the bound; then the device time of a launch at
+     1, 2 and 4 lanes a row, the envs read through L1 and staged in shared
+     memory, each equal to the plain version.
      Road geometry (the agent-geometry, pair and neighbour kernels): road_
      traffic@10k from its reset poses (agents on path vertices: the closest
      index and every flag must equal the plain version's), from jittered
@@ -125,24 +130,40 @@ Phases, one line each:
      profiler), device busy ms a step, idle share, device kernels a step,
      and each kernel's device ms a step; then for each training cell the
      host's enqueue time of a rollout step split into env.step, the masked
-     reset and the rest, and one training iteration under the profiler.
+     reset and the rest, and one training iteration under the profiler;
+  6. the rollout as a CUDA graph (parallel/rollout.py): on every main path
+     at 1024 envs, and transport at 30k, two 10-step graph rollouts in a
+     row (capture and replay, then a replay from the graph's own final
+     state) against the eager loop from the same state and generator
+     states: every output, the final state and the world generator's
+     state equal to the bit, and the replayed launches a step those of
+     phase 3 (each count set to 0 just before and read just after); then
+     each main path at its own envs, 100-step rollouts eager and as a
+     graph in turns (eager, graph, graph, eager): env-steps/s, the
+     capture's time and peak memory, and 20 graph steps under the
+     profiler (wall, device busy, idle share, device kernels and launches
+     a replayed step); then the port bench once
+     (`python -m vectorizedmultiagentsimulator_tpu_torch.bench`,
+     transport@30k).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the
 package beside it, the script fails before printing any result.
 
-    python3 chip_smoke.py --ab PARENT_ROOT [PAIRS]
+    python3 chip_smoke.py --ab PARENT_ROOT [PAIRS [GROUP,...]]
 
 compares this checkout's package with another checkout's (for example the
 parent commit unpacked with `git archive` into a gitignored directory) on
 one card: PAIRS (default 10) alternating pairs of processes, each running
-two 100-step rollouts of joint_passage and buzz_wire at 30k envs with the
-physics wrapper's time per call and its kernel's device time, two of
-road_traffic at 10k with the agent-geometry, pair and neighbour kernels'
-device time a launch, two of navigation and flocking at 30k with the ray
-cast's device time and launches a step, and two training iterations of
-transport@16384 (update and iteration ms); it prints each run and a JSON
-summary.
+the groups named (all by default): "joint", two 100-step rollouts of
+joint_passage and buzz_wire at 30k envs with the physics wrapper's time
+per call and its kernel's device time; "road", two of road_traffic at 10k
+with the agent-geometry, pair and neighbour kernels' device time a launch;
+"lidar", two of navigation and flocking at 30k with the ray cast's device
+time and launches a step; "football", two of football 5v5 at 30k with the
+device busy time, device kernels and planner kernel time a step; "train",
+two training iterations of transport@16384 (update and iteration ms); it
+prints each run and a JSON summary.
 """
 import contextlib
 import json
@@ -183,6 +204,9 @@ AB_ROAD = ("road_traffic", 10_000)
 # And the LIDAR paths at 30k envs: env-steps/s, the ray cast's device ms
 # and launches a step.
 AB_LIDAR = ("navigation", "flocking")
+# The groups --ab runs by default (rate_worker), football 5v5@30k's step
+# and planner among them.
+AB_GROUPS = ("joint", "road", "lidar", "football", "train")
 # (scenario, envs, agents, obs width, ray-cast launches a step (one a LIDAR
 # group: navigation's and flocking's four LIDARs are one), planner
 # launches a step, road-kernel launches a step: agent geometry, pair,
@@ -199,6 +223,11 @@ MAIN_PATHS = [
     ("buzz_wire", N_ENVS, 2, 6, 0, 0, (0, 0, 0)),
     ("road_traffic", 10_000, 20, 32, 0, 0, (1, 1, 1)),
 ]
+# Phase 6: the graph rollout against the eager loop on every main path at
+# GRAPH_ENVS envs over GRAPH_STEPS steps (and transport at N_ENVS), twice
+# in a row; then each path's eager and graph rates at its own envs.
+GRAPH_ENVS = 1024
+GRAPH_STEPS = 10
 # The joint worlds (joint_force 900 over 10-15 substeps): an ulp grows
 # about 2x a substep, so from inputs far from rest (random, or after 10
 # random steps) the kernel is held to torch_helpers.physics_diff's float64
@@ -249,9 +278,10 @@ PHYSICS_OPS = {"ss": 29, "bs": 131, "ls": 42, "ll": 133, "bl": 470,
                "bb": 3300, "entity": 25, "joint": 102, "joint_fixed": 17}
 CAST_OPS = {"ray": 3, "sphere": 37, "box": 50, "line": 24, "box_env": 5,
             "line_env": 4, "reach": 15}
-# The same for csrc/football_policy.cu: per candidate and teammate, plus
-# the teammate-repulsion term per candidate, teammate and other teammate.
-PLANNER_OPS = {"candidate": 91, "pair": 11}
+# The same for csrc/football_policy.cu: per candidate and teammate (the
+# draws' scaling included), and the teammate-repulsion term per candidate,
+# teammate and other teammate (the agent's own term is left out).
+PLANNER_OPS = {"candidate": 96, "pair": 11}
 # The same for csrc/road_geometry.cu: one segment distance with its running
 # minimum, one strict crossing test, one rectangle (cos, sin, 5 corners),
 # the box of an agent's points, one short-term point, a neighbour round
@@ -879,46 +909,11 @@ def profile_steps(env, actions, on):
     return wall, busy, 1.0 - busy / wall, len(device) / n, named
 
 
-def rate_worker(root):
-    """``--rate ROOT``: with the port package found at ROOT, for each
-    scenario of AB_SCENARIOS at 30k envs two N_STEPS-step rollouts'
-    env-steps/s and the physics wrapper's time per call and its kernel's
-    device time (back-to-back calls from the reset state); for AB_ROAD
-    two rollouts' env-steps/s and the agent-geometry, pair and neighbour
-    wrappers' time per call and kernels' device time at the state they end
-    in; for AB_LIDAR two rollouts' env-steps/s and the ray cast's device
-    ms and launches a step over 20 more steps; then for
-    AB_TRAIN at the PPOConfig defaults, after one warm-up iteration, two
-    iterations' update ms and whole-iteration ms (host clock, each ended by
-    a synchronize); one JSON line of {metric: value}."""
-    sys.path.insert(0, os.path.abspath(root))
+def road_rates(vmt, out):
+    """rate_worker's "road" group into ``out``."""
     import torch
-    import vectorizedmultiagentsimulator_tpu_torch as vmt
-    from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
-    from vectorizedmultiagentsimulator_tpu_torch.ops import (
-        physics_cuda,
-        raycast_cuda,
-        road_geometry_cuda,
-    )
+    from vectorizedmultiagentsimulator_tpu_torch.ops import road_geometry_cuda
 
-    assert vmt.__file__.startswith(os.path.abspath(root)), vmt.__file__
-    out = {}
-    for name in AB_SCENARIOS:
-        env = vmt.make_env(name, num_envs=N_ENVS, device="cuda", seed=0)
-        actions = random_actions(env, N_STEPS, seed=7)
-        rates = [timed_rollout(env, actions) for _ in range(2)]
-        w = env.world
-        inputs = state_inputs(w)
-        step = lambda: physics_cuda.fused_step(w, *inputs)
-        with torch.no_grad():
-            for _ in range(10):
-                step()
-            call_ms = cuda_time_ms(step, 200)
-            dev_ms = device_ms(step, 20, "physics_step_kernel")
-        out[f"{name} env-steps/s"] = sum(rates) / 2
-        out[f"{name} physics ms/call"] = call_ms
-        out[f"{name} physics device ms"] = dev_ms
-        del env, actions, w, inputs, step
     name, num_envs = AB_ROAD
     env = vmt.make_env(name, num_envs=num_envs, device="cuda", seed=0)
     actions = random_actions(env, N_STEPS, seed=7)
@@ -947,7 +942,56 @@ def rate_worker(root):
         out[f"{name}@{num_envs} neighbor_obs device ms"] = device_ms(
             call, 20, "neighbor_obs_kernel")
     del env, actions, nargs, call
-    for name in AB_LIDAR:
+
+
+def rate_worker(root, groups=AB_GROUPS):
+    """``--rate ROOT [GROUP,...]``: with the port package found at ROOT, for
+    the groups named (AB_GROUPS by default): "joint", for each
+    scenario of AB_SCENARIOS at 30k envs two N_STEPS-step rollouts'
+    env-steps/s and the physics wrapper's time per call and its kernel's
+    device time (back-to-back calls from the reset state); "road", for
+    AB_ROAD two rollouts' env-steps/s and the agent-geometry, pair and
+    neighbour wrappers' time per call and kernels' device time at the state
+    they end in; "lidar", for AB_LIDAR two rollouts' env-steps/s and the ray cast's
+    device ms and launches a step over 20 more steps; "football", for
+    football 5v5@30k two rollouts' env-steps/s, then over PROFILE_STEPS
+    more steps under the profiler the device busy ms, device kernels and
+    planner kernel ms a step (the planner's launch and the small kernels
+    around it); "train", for AB_TRAIN at the PPOConfig defaults, after one
+    warm-up iteration, two iterations' update ms and whole-iteration ms
+    (host clock, each ended by a synchronize); one JSON line of {metric:
+    value}."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    import vectorizedmultiagentsimulator_tpu_torch as vmt
+    from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
+    from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        physics_cuda,
+        raycast_cuda,
+        road_geometry_cuda,
+    )
+
+    assert vmt.__file__.startswith(os.path.abspath(root)), vmt.__file__
+    out = {}
+    for name in AB_SCENARIOS if "joint" in groups else ():
+        env = vmt.make_env(name, num_envs=N_ENVS, device="cuda", seed=0)
+        actions = random_actions(env, N_STEPS, seed=7)
+        rates = [timed_rollout(env, actions) for _ in range(2)]
+        w = env.world
+        inputs = state_inputs(w)
+        step = lambda: physics_cuda.fused_step(w, *inputs)
+        with torch.no_grad():
+            for _ in range(10):
+                step()
+            call_ms = cuda_time_ms(step, 200)
+            dev_ms = device_ms(step, 20, "physics_step_kernel")
+        out[f"{name} env-steps/s"] = sum(rates) / 2
+        out[f"{name} physics ms/call"] = call_ms
+        out[f"{name} physics device ms"] = dev_ms
+        del env, actions, w, inputs, step
+    if "road" in groups:
+        road_rates(vmt, out)
+    for name in AB_LIDAR if "lidar" in groups else ():
         env = vmt.make_env(name, num_envs=N_ENVS, device="cuda", seed=0)
         actions = random_actions(env, N_STEPS, seed=7)
         out[f"{name} env-steps/s"] = sum(
@@ -961,6 +1005,21 @@ def rate_worker(root):
             out[f"{name} ray-cast launches/step"] = (
                 raycast_cuda.LAUNCHES - before) / 20
         del env, actions
+    if "football" in groups:
+        env = vmt.make_env("football", num_envs=N_ENVS, device="cuda", seed=0,
+                           **PATH_KWARGS["football"])
+        actions = random_actions(env, N_STEPS, seed=7)
+        out["football env-steps/s"] = sum(
+            timed_rollout(env, actions) for _ in range(2)) / 2
+        _, busy, _, n_kernels, named = profile_steps(
+            env, actions[:PROFILE_STEPS], True)
+        out["football device busy ms/step"] = busy
+        out["football device kernels/step"] = n_kernels
+        out["football planner device ms/step"] = named["planner"]
+        del env, actions
+    if "train" not in groups:
+        print(json.dumps(out), flush=True)
+        return
     name, num_envs = AB_TRAIN
     _, _, tr = torch_ppo.init_training(name, num_envs, seed=0)
     tr.train_step()
@@ -981,11 +1040,11 @@ def rate_worker(root):
     print(json.dumps(out), flush=True)
 
 
-def ab(parent_root, pairs):
-    """``--ab PARENT_ROOT [PAIRS]``: ``rate_worker``'s numbers for this
-    checkout's package against the one at PARENT_ROOT, one process each,
-    in ``pairs`` alternating pairs (parent, change, change, parent, ...)
-    on this card."""
+def ab(parent_root, pairs, groups=AB_GROUPS):
+    """``--ab PARENT_ROOT [PAIRS [GROUP,...]]``: ``rate_worker``'s numbers
+    for ``groups`` of this checkout's package against the one at
+    PARENT_ROOT, one process each, in ``pairs`` alternating pairs (parent,
+    change, change, parent, ...) on this card."""
     import statistics
 
     runs = {"parent": [], "change": []}
@@ -993,7 +1052,8 @@ def ab(parent_root, pairs):
         for who in (("parent", "change") if k % 2 == 0 else ("change", "parent")):
             root = parent_root if who == "parent" else ROOT
             proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--rate", root],
+                [sys.executable, os.path.abspath(__file__), "--rate", root,
+                 ",".join(groups)],
                 capture_output=True, text=True, timeout=600, check=True,
             )
             got = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -1401,15 +1461,18 @@ def ppo_phase_2(errs):
 
 
 def planner_bound_ms(p, B):
-    """The least time of one planner call on the H100: each operand read
-    once and the best positions written once over the memory rate, or its
-    arithmetic (PLANNER_OPS) over the fp32 rate; returns (ms, "bytes" |
-    "operations")."""
+    """The least time of one planner call on the H100: each operand the
+    kernel reads read once (agents_pos, curr_target, the normals, the
+    ball's and nets' positions, the value noise) and the best positions
+    written once over the memory rate, or its arithmetic (PLANNER_OPS: each
+    candidate, each other teammate of each candidate) over the fp32 rate;
+    returns (ms, "bytes" | "operations")."""
     T, S = p.T, p.S
     floats = 2 * T + 2 * T + 2 * T * S + 6 + 2 * T
     if p.has_noise:
         floats += T * (S + 1)
-    ops = B * T * (S + 1) * (PLANNER_OPS["candidate"] + PLANNER_OPS["pair"] * T)
+    ops = B * T * (S + 1) * (PLANNER_OPS["candidate"]
+                             + PLANNER_OPS["pair"] * (T - 1))
     return bound(4 * B * floats, ops)
 
 
@@ -1454,23 +1517,35 @@ def planner_vs_plain(p, inputs, label):
 
 def planner_phase_2(errs, real_inputs):
     """Phase 2 for the planner kernel: random inputs at N_ENVS for 1, 3 and
-    5 teammates with and without value noise, then ``real_inputs`` (the
+    5 teammates with and without value noise, a third of the envs with
+    exact ties (torch_helpers.tied_planner_inputs), the draws scaled in the
+    kernel, curr_target, the ball and the nets strided views (torch_helpers.
+    strided_planner_views), then ``real_inputs`` (the
     football path's after 10 steps); returns the latter's (ms, plain_ms,
     bound_ms, by)."""
     import torch
-    from torch_helpers import planner_fields, random_planner_inputs
+    from torch_helpers import (
+        planner_fields,
+        random_planner_inputs,
+        strided_planner_views,
+        tied_planner_inputs,
+    )
     from vectorizedmultiagentsimulator_tpu_torch.ops import (
         football_policy_cuda as fpc,
     )
 
     for T in (1, 3, 5):
         for noise in (False, True):
-            p = fpc.PlannerParams(**planner_fields(T, has_noise=noise))
+            p = fpc.PlannerParams(**planner_fields(T, has_noise=noise),
+                                  sigma=0.55, spread=1.3, noise_scale=0.1)
             inputs = [
                 None if x is None else torch.as_tensor(x, device="cuda")
-                for x in random_planner_inputs(N_ENVS, T, 2, noise, seed=T)
+                for x in tied_planner_inputs(random_planner_inputs(
+                    N_ENVS, T, 2, noise, seed=T))
             ]
-            errs.append(planner_vs_plain(p, inputs, "random inputs")[0])
+            errs.append(planner_vs_plain(
+                p, strided_planner_views(inputs),
+                "random inputs with exact ties, strided views")[0])
     err, ms, plain_ms, bound_ms, by = planner_vs_plain(
         real_inputs[0], real_inputs[1:],
         f"football 5v5@{N_ENVS} after 10 steps")
@@ -1875,15 +1950,193 @@ def road_phase_2(errs):
     return times, layouts
 
 
+def graph_vs_eager(path, envs, steps=GRAPH_STEPS):
+    """The graph rollout (parallel/rollout.py on the card) against the eager
+    loop from one state and one generator state each: make_env(path) after
+    3 random steps, ``rollout(env, n_steps=steps, generator=g)`` twice in a
+    row (a capture and a replay, then a replay from the graph's own final
+    state), against ``graph=False`` twice from the same start.  Every
+    collected output, the final states and both generators' states must be
+    equal to the bit (the second calls agree only if each replay draws the
+    numbers the eager loop draws next).  The kernels each replay runs, the
+    kernel nodes of the captured graph counted by name
+    (torch_helpers.graph_kernels), must be the path's launches a step
+    (MAIN_PATHS) times ``steps``, and a third graph call's profiler trace
+    (torch_helpers.traced_launches) must show each of those kernels run
+    on the card, no more often (the profiler now and then drops a
+    kernel's record of a replay, so its count is shown, not held equal);
+    the wrappers' host counts, set to 0 just before the graph calls and
+    read just after, must be the capture's: its warm-up step and its
+    ``steps`` steps, each with the path's launches.  Returns (host counts,
+    replayed kernels a step)."""
+    import torch
+    from torch_helpers import graph_kernels, kept_graphs, traced_launches
+    from vectorizedmultiagentsimulator_tpu_torch import ops
+    from vectorizedmultiagentsimulator_tpu_torch.parallel import rollout
+    from vectorizedmultiagentsimulator_tpu_torch.parallel.rollout import (
+        _clone_state,
+        _flatten,
+        _tensors,
+    )
+
+    name, _, _, _, casts, plans, road = path
+    label = f"{name}@{envs}"
+    env = make_path_env(name, envs)
+    for a in random_actions(env, 3, seed=1):
+        env.step(a)
+    w = env.world
+    start, world_rng = _clone_state(w.state), w.generator.get_state()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    policy_rng = g.get_state()
+    torch.cuda.synchronize()
+    runs = {}
+    with kept_graphs():
+        for graph in (True, False):
+            w.bind(_clone_state(start))
+            w.generator.set_state(world_rng)
+            g.set_state(policy_rng)
+            runs[graph] = []
+
+            def call():
+                traj = rollout(env, n_steps=steps, generator=g,
+                               graph=graph)[1]
+                runs[graph].append((_flatten(traj)[0], _clone_state(w.state),
+                                    w.generator.get_state(), g.get_state()))
+
+            if graph:
+                ops.set_launch_counts(dict.fromkeys(ops.launch_counts(), 0))
+            call()
+            call()
+            if graph:
+                counts = {k: n for k, n in ops.launch_counts().items() if n}
+        # What a replay runs: the kernel nodes of the graph, by name.
+        (captured_graph,) = env._rollout_graphs.values()
+        replayed = {k: n / steps
+                    for k, n in graph_kernels(captured_graph.graph).items()}
+        # And what the profiler sees of one more graph call (the most of
+        # three traces).
+        traced = {k: n / steps for k, n in traced_launches(
+            lambda: rollout(env, n_steps=steps, generator=g)).items()}
+    env._rollout_graphs.clear()
+    unequal = []
+    for k, ((gl, gs, gr, gp), (el, es, er, ep)) in enumerate(
+            zip(runs[True], runs[False])):
+        unequal += [f"call {k} output {i}" for i, (x, y) in
+                    enumerate(zip(gl, el)) if not torch.equal(x, y)]
+        unequal += [f"call {k} state {f}" for f, x in _tensors(gs).items()
+                    if not torch.equal(x, _tensors(es)[f])]
+        if not torch.equal(gr, er):
+            unequal.append(f"call {k} world generator state")
+        if not torch.equal(gp, ep):
+            unequal.append(f"call {k} policy generator state")
+    expected = {"physics_step": 1, "raycast": casts, "football_policy": plans,
+                "agent_geometry": road[0], "pair_collisions": road[1],
+                "neighbor_obs": road[2]}
+    expected = {k: n for k, n in expected.items() if n}
+    captured = {k: n * (steps + 1) for k, n in expected.items()}
+    log(f"[6] {label}: graph vs eager over 2 x {steps} steps,"
+        f" {len(runs[True][0][0])} outputs a call: equal to the bit"
+        f" {not unequal} (differ: {unequal[:4]}), kernels a replayed step"
+        f" (graph nodes) {replayed}, (profiler trace) {traced}, host launch"
+        f" counts of the capture {counts}")
+    if (unequal or replayed != expected or counts != captured
+            or traced.keys() != expected.keys()
+            or any(n > expected[k] for k, n in traced.items())):
+        raise AssertionError(
+            f"{label}: the graph rollout differs from the eager loop"
+            f" ({unequal[:8]}), or a replayed step ran {replayed} kernels"
+            f" ({traced} in the profiler trace), not {expected}, or the"
+            f" capture counted {counts}, not {captured}")
+    return counts, replayed
+
+
+def graph_rates(name, envs):
+    """N_STEPS-step rollouts (default policy, nothing collected) eager and
+    as a graph, in turns (eager, graph, graph, eager) after a warm-up of
+    each: env-steps/s; the graph's capture time and peak memory; then
+    PROFILE_STEPS graph steps under torch.profiler: wall ms a step (CUDA
+    events, without the profiler), device busy ms a step, idle share,
+    device kernels a step, and the port's kernels a replayed step (by name
+    in the trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch_helpers import KERNEL_NAMES
+    from vectorizedmultiagentsimulator_tpu_torch.parallel import rollout
+
+    env = make_path_env(name, envs)
+    run = lambda graph, n=N_STEPS: rollout(env, n_steps=n, collect=(),
+                                           graph=graph)
+    run(False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run(True)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rates = {True: [], False: []}
+    for graph in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(graph)
+        torch.cuda.synchronize()
+        rates[graph].append(envs * N_STEPS / (time.perf_counter() - t0))
+    run(True, PROFILE_STEPS)
+    wall = cuda_time_ms(lambda: run(True, PROFILE_STEPS), 3) / PROFILE_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(True, PROFILE_STEPS)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3 / PROFILE_STEPS
+    launches = {k: sum(key in e.name for e in device) / PROFILE_STEPS
+                for k, key in KERNEL_NAMES.items()}
+    launches = {k: n for k, n in launches.items() if n}
+    out = {"eager": rates[False], "graph": rates[True], "capture_s": capture_s,
+           "peak_gib": peak, "wall_ms": wall, "busy_ms": busy,
+           "idle": 1.0 - busy / wall if device else None,
+           "kernels": len(device) / PROFILE_STEPS, "launches": launches}
+    log(f"[6] {name}@{envs} {N_STEPS}-step rollout env-steps/s: eager"
+        f" {rates[False][0]:.6g} {rates[False][1]:.6g}, graph"
+        f" {rates[True][0]:.6g} {rates[True][1]:.6g}; capture {capture_s:.2f}"
+        f" s, peak {peak:.3f} GiB; graph {PROFILE_STEPS} steps: wall"
+        f" {wall:.4f} ms/step, device busy {busy:.4f} ms/step, idle share"
+        + (f" {out['idle']:.4f}" if device else " not measured (no device"
+           " events in the trace)")
+        + f", {out['kernels']:.1f} device kernels/step, launches a replayed"
+        f" step (profiler trace) {launches}")
+    return out
+
+
+def port_bench():
+    """``python -m vectorizedmultiagentsimulator_tpu_torch.bench`` once
+    (transport@30k, bench.py's workload); returns its JSON result."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vectorizedmultiagentsimulator_tpu_torch.bench"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600, check=True)
+    lines = proc.stdout.strip().splitlines()
+    result = json.loads(lines[-1])
+    if set(result) != {"metric", "value", "unit", "vs_baseline"} or not (
+            result["value"] > 0):
+        raise AssertionError(f"port bench printed {lines[-1]!r}")
+    log(f"[6] port bench ({time.perf_counter() - t0:.1f} s): {lines[0]};"
+        f" {lines[-1]}")
+    return result
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; none is available")
     if sys.argv[1:2] == ["--rate"]:
-        return rate_worker(sys.argv[2])
+        return rate_worker(sys.argv[2], tuple(sys.argv[3].split(",")))
     if sys.argv[1:2] == ["--ab"]:
-        return ab(sys.argv[2], int(sys.argv[3]) if len(sys.argv) > 3 else 10)
+        return ab(sys.argv[2], int(sys.argv[3]) if len(sys.argv) > 3 else 10,
+                  tuple(sys.argv[4].split(",")) if len(sys.argv) > 4
+                  else AB_GROUPS)
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import numpy as np
@@ -2242,6 +2495,16 @@ def main():
     for name, num_envs in TRAIN_CELLS:
         profile_training(name, num_envs)
     phase_time(5)
+
+    # ---- 6: the rollout as a CUDA graph, the port bench ---- #
+    # every path at GRAPH_ENVS, then transport at its full N_ENVS
+    for path, envs in ([(p, GRAPH_ENVS) for p in MAIN_PATHS]
+                       + [(MAIN_PATHS[0], N_ENVS)]):
+        graph_vs_eager(path, envs)
+    for name, envs, *_ in MAIN_PATHS:
+        graph_rates(name, envs)
+    port_bench()
+    phase_time(6)
 
     print(json.dumps({"kernels": [
         {

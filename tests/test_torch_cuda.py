@@ -21,7 +21,9 @@ from torch_helpers import (
     MANY_ENTITIES,
     build_world,
     geometry_diff,
+    graph_kernels,
     jittered_inputs,
+    kept_graphs,
     neighbor_diff,
     physics_diff,
     planner_fields,
@@ -36,6 +38,8 @@ from torch_helpers import (
     random_planner_inputs,
     random_ppo_inputs,
     random_step_inputs,
+    strided_planner_views,
+    tied_planner_inputs,
 )
 
 import vectorizedmultiagentsimulator_tpu_torch as vmt_torch
@@ -250,15 +254,20 @@ def test_main_path_one_launch_per_step_no_sync(cuda, scenario, kwargs,
                                          (5, True)])
 def test_planner_kernel_matches_plain(cuda, T, has_noise):
     """The planner kernel against its plain version from the same random
-    inputs: rows that pick the same candidate within 1e-6, any other pick
-    only at a near tie; a second launch gives the same bits."""
+    inputs, with exact ties (torch_helpers.tied_planner_inputs), the draws
+    scaled in the kernel, curr_target, the ball and the nets as strided
+    views of a stacked state: rows that pick the same candidate within
+    1e-6, any other pick only at a near tie; a second launch gives the
+    same bits."""
     p = football_policy_cuda.PlannerParams(**planner_fields(
-        T, has_noise=has_noise))
+        T, has_noise=has_noise), sigma=0.55, spread=1.3, noise_scale=0.1)
     inputs = [None if x is None else torch.as_tensor(x, device="cuda")
-              for x in random_planner_inputs(B, T, 2, has_noise, seed=T)]
+              for x in tied_planner_inputs(
+                  random_planner_inputs(B, T, 2, has_noise, seed=T))]
+    views = strided_planner_views(inputs)
     before = football_policy_cuda.LAUNCHES
-    got = football_policy_cuda.fused_best_positions(p, *inputs)
-    again = football_policy_cuda.fused_best_positions(p, *inputs)
+    got = football_policy_cuda.fused_best_positions(p, *views)
+    again = football_policy_cuda.fused_best_positions(p, *views)
     torch.cuda.synchronize()
     assert football_policy_cuda.LAUNCHES == before + 2
     assert torch.equal(got, again)
@@ -272,6 +281,127 @@ def test_planner_kernel_matches_plain(cuda, T, has_noise):
     strided.copy_(inputs[0])
     with pytest.raises(ValueError, match="contiguous"):
         football_policy_cuda.fused_best_positions(p, strided, *inputs[1:])
+
+
+GRAPH_PATHS = [
+    # (scenario, kwargs, ray casts, planner launches, road launches a step)
+    ("transport", {}, 0, 0, 0), ("simple_spread", {}, 0, 0, 0),
+    ("navigation", {}, 1, 0, 0), ("flocking", {}, 1, 0, 0),
+    ("balance", {}, 0, 0, 0), ("football", FIVE_A_SIDE, 0, 1, 0),
+    ("joint_passage", {}, 0, 0, 0), ("buzz_wire", {}, 0, 0, 0),
+    ("road_traffic", {}, 0, 0, 1)]
+
+
+@pytest.mark.parametrize("scenario,kwargs,casts,plans,road", GRAPH_PATHS)
+def test_graph_rollout_matches_eager(cuda, scenario, kwargs, casts, plans,
+                                     road, B=256, n_steps=5):
+    """``rollout`` as a CUDA graph against its eager loop on the card, from
+    one state and one generator state: two calls in a row (capture and
+    replay, then a replay from the graph's own final state), every output,
+    the final state and both generators' states equal to the bit.  Each
+    replay runs (the captured graph's kernel nodes, by name) one physics
+    kernel a step, one ray cast a LIDAR group, one planner kernel a
+    scripted team and one kernel of each road kernel; the wrappers' host
+    counts hold the capture's launches (its warm-up step and its steps)
+    and no replay's."""
+    from vectorizedmultiagentsimulator_tpu_torch import ops
+    from vectorizedmultiagentsimulator_tpu_torch.parallel import rollout
+    from vectorizedmultiagentsimulator_tpu_torch.parallel.rollout import (
+        _clone_state,
+        _flatten,
+        _tensors,
+    )
+
+    env = vmt_torch.make_env(scenario, num_envs=B, device="cuda", seed=0,
+                             **kwargs)
+    env.step(env.get_random_actions())
+    w = env.world
+    start, world_rng = _clone_state(w.state), w.generator.get_state()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    policy_rng = g.get_state()
+    runs = {}
+    with kept_graphs():
+        for graph in (True, False):
+            w.bind(_clone_state(start))
+            w.generator.set_state(world_rng)
+            g.set_state(policy_rng)
+            runs[graph] = []
+
+            def call():
+                traj = rollout(env, n_steps=n_steps, generator=g,
+                               graph=graph)[1]
+                # the graph's final state lives in buffers the next call
+                # of the same graph writes over: keep a copy
+                runs[graph].append((_flatten(traj)[0],
+                                    _tensors(_clone_state(w.state)),
+                                    w.generator.get_state(), g.get_state()))
+
+            before = ops.launch_counts()
+            call()
+            call()
+            if graph:
+                counts = {k: n - before[k]
+                          for k, n in ops.launch_counts().items()
+                          if n != before[k]}
+        (captured,) = env._rollout_graphs.values()
+        replayed = graph_kernels(captured.graph)
+    for (gl, gs, gr, gp), (el, es, er, ep) in zip(runs[True], runs[False]):
+        assert all(torch.equal(x, y) for x, y in zip(gl, el))
+        assert all(torch.equal(x, es[k]) for k, x in gs.items())
+        assert torch.equal(gr, er) and torch.equal(gp, ep)
+    per_step = {"physics_step": 1, "raycast": casts, "football_policy": plans}
+    per_step.update(dict.fromkeys(road_geometry_cuda.KERNELS, road))
+    per_step = {k: n for k, n in per_step.items() if n}
+    assert replayed == {k: n * n_steps for k, n in per_step.items()}
+    assert counts == {k: n * (n_steps + 1) for k, n in per_step.items()}
+
+
+def test_graph_cache_keeps_one_graph(cuda, B=256, n_steps=3):
+    """A fresh policy at each call (a new lambda) replaces the env's graph
+    rather than adding one; fresh generators with one policy replay the
+    same graph, and each generator ends where the eager loop leaves it."""
+    from vectorizedmultiagentsimulator_tpu_torch.parallel import rollout
+
+    env = vmt_torch.make_env("transport", num_envs=B, device="cuda", seed=0)
+    for seed in range(3):
+        rollout(env, lambda obs, gen: env.get_random_actions(gen),
+                n_steps=n_steps,
+                generator=torch.Generator(device="cuda").manual_seed(seed))
+        assert len(env._rollout_graphs) == 1
+
+    def policy(obs, gen):
+        return env.get_random_actions(gen)
+
+    graphs = []
+    for seed in range(2):
+        ends = []
+        for graph in (True, False):
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            rollout(env, policy, n_steps=n_steps, generator=g, graph=graph)
+            ends.append(g.get_state())
+        assert torch.equal(*ends)
+        graphs.append(next(iter(env._rollout_graphs.values())))
+    assert len(env._rollout_graphs) == 1 and graphs[0] is graphs[1]
+
+
+def test_benchmark_step_on_the_card(cuda):
+    """``benchmark_step`` times graph replays: finite, plausible, and the
+    same graph serves a second call with new actions."""
+    from vectorizedmultiagentsimulator_tpu_torch.utils.profiling import (
+        benchmark_step,
+        uniform_actions,
+    )
+
+    env = vmt_torch.make_env("transport", num_envs=B, device="cuda", seed=0)
+    out = benchmark_step(env, n_steps=20, n_repeats=2)
+    assert set(out) == {"wall_s", "env_steps_per_s", "agent_steps_per_s",
+                        "times"}
+    assert len(out["times"]) == 2 and out["wall_s"] == min(out["times"])
+    assert out["agent_steps_per_s"] == out["env_steps_per_s"] * 4
+    graphs = len(env._rollout_graphs)
+    benchmark_step(env, n_steps=20, n_repeats=1,
+                   actions=uniform_actions(env, seed=1))
+    assert len(env._rollout_graphs) == graphs
 
 
 def _cast_scene(seed, axis_aligned=False):

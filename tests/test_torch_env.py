@@ -188,24 +188,28 @@ def test_port_never_imports_jax():
 
 
 def test_rollout_and_reseed(num_envs=4, n_steps=3):
+    """``rollout(env, n_steps=...)`` stacks the outputs on a leading time
+    axis; ``reset(seed=...)`` restarts the world's generator, so the spawn
+    repeats, and the same rollout from there (the default policy's
+    generator seeded 0 at each call) gives the same trajectory."""
     from vectorizedmultiagentsimulator_tpu_torch.parallel import rollout
 
     env = vmt_torch.make_env(
         "simple_spread", num_envs=num_envs, device="cpu", seed=0
     )
     first = env.reset(seed=5)
-    actions = [env.get_random_actions() for _ in range(n_steps)]
-    traj = rollout(env, n_steps, actions)
-    assert all(len(traj[k]) == n_steps for k in ("obs", "rews", "dones"))
-    assert traj["obs"][-1][0].shape == (num_envs, 14)
-    assert traj["dones"][-1].dtype == torch.bool
-    # reset(seed=...) restarts the generator, so the spawn repeats, and the
-    # same actions give the same trajectory.
+    state, traj = rollout(env, n_steps=n_steps)
+    assert state is env.world.state
+    assert all(len(traj[k]) == env.n_agents for k in ("obs", "rews"))
+    assert traj["obs"][0].shape == (n_steps, num_envs, 14)
+    assert traj["rews"][0].shape == (n_steps, num_envs)
+    assert traj["dones"].shape == (n_steps, num_envs)
+    assert traj["dones"].dtype == torch.bool
     again = env.reset(seed=5)
     for a, b in zip(first, again):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    replay = rollout(env, n_steps, actions)
-    for a, b in zip(traj["obs"][-1], replay["obs"][-1]):
+    _, replay = rollout(env, n_steps=n_steps)
+    for a, b in zip(traj["obs"], replay["obs"]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 

@@ -24,8 +24,9 @@ sys.path.insert(0, os.path.dirname(__file__))
 from torch_helpers import (
     jax_state_arrays,
     planner_fields,
-    planner_selection_diff,
     random_planner_inputs,
+    strided_planner_views,
+    tied_planner_inputs,
 )
 
 import vectorizedmultiagentsimulator_tpu as vmt
@@ -54,13 +55,21 @@ def test_planner_plain_matches_jax(T, has_noise, monkeypatch):
     """``best_positions_plain`` against ``best_positions_jnp`` (every row
     within 1e-6) and against the Pallas kernel in interpret mode (the rule
     of test_football_policy_pallas.py: at least 99 % of rows exactly equal,
-    every row a clamped candidate)."""
+    every row a clamped candidate).  The port takes the unscaled draws and
+    scales them itself; the JAX side takes them scaled by the same fp32
+    products, made here in numpy."""
     fields = planner_fields(T, has_noise=has_noise)
+    scales = dict(sigma=0.55, spread=1.3, noise_scale=0.1)
     inputs = random_planner_inputs(67, T, 2, has_noise, seed=T)
-    got = fpc.best_positions_plain(fpc.PlannerParams(**fields),
+    got = fpc.best_positions_plain(fpc.PlannerParams(**fields, **scales),
                                    *_torch(inputs)).numpy()
+    f32 = np.float32
+    scaled = list(inputs)
+    scaled[2] = inputs[2] * f32(scales["sigma"]) * f32(scales["spread"])
+    if has_noise:
+        scaled[6] = inputs[6] * f32(scales["noise_scale"])
     jp = fpp.PlannerParams(**fields)
-    j_in = [None if x is None else jnp.asarray(x) for x in inputs]
+    j_in = [None if x is None else jnp.asarray(x) for x in scaled]
     mirror = np.asarray(fpp.best_positions_jnp(jp, *j_in))
     np.testing.assert_allclose(got, mirror, rtol=0, atol=1e-6)
 
@@ -87,30 +96,47 @@ def host_planner(tmp_path_factory):
         check=True,
     )
     fn = ctypes.CDLL(lib_path).vmt_football_best_positions
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return fn
 
 
-@pytest.mark.parametrize("T,has_noise", PLANNER_CASES)
-def test_kernel_source_on_the_host_matches_plain(host_planner, T, has_noise):
-    """The kernel's per-thread body (the source compiled as host C++, run
-    over every env and teammate) against the plain version: rows that pick
-    the same candidate within 1e-6, and no other pick but at a near tie
-    (the host's expf is not the library's)."""
+def _host_run(host_planner, p, inputs):
+    """The host build's best positions for ``inputs`` (CPU tensors, any of
+    the views the card takes)."""
+    out = torch.empty((inputs[0].shape[0], p.T, 2))
+    ops = fpc.operands(p, *inputs, out)
+    assert host_planner(ctypes.addressof(ops),
+                        ctypes.addressof(fpc._struct(p)), None) == 0
+    return out
+
+
+# T 1-5, S 0-7; and S = 40, a long candidate loop.
+HOST_CASES = [(T, S, noise) for T in range(1, 6) for S in range(8)
+              for noise in (False, True)] + [(2, 40, False), (2, 40, True)]
+
+
+@pytest.mark.parametrize("T,S,has_noise", HOST_CASES)
+def test_kernel_source_on_the_host_matches_plain(host_planner, T, S,
+                                                 has_noise):
+    """The kernel's per-row body (the source compiled as host C++) against
+    the plain version, bit for bit: random rows, rows with candidates that
+    tie exactly (mirrored samples, candidates clamped to one corner), the
+    draws scaled in the kernel, and curr_target, the ball and the nets as
+    strided views of a stacked state."""
     if host_planner is None:
         pytest.skip("needs a host C++ compiler")
-    p = fpc.PlannerParams(**planner_fields(T, has_noise=has_noise))
-    inputs = _torch(random_planner_inputs(1000, T, 2, has_noise, seed=10 + T))
-    out = torch.empty((1000, T, 2))
-    err = host_planner(
-        *[None if x is None else x.data_ptr() for x in inputs],
-        out.data_ptr(), ctypes.addressof(fpc._struct(p)), 1000, None)
-    assert err == 0
-    same_err, flips, not_ties, gap = planner_selection_diff(fpc, p, inputs,
-                                                            out)
-    assert same_err <= 1e-6, same_err
-    assert not_ties == 0, (flips, gap)
+    p = fpc.PlannerParams(**planner_fields(T, S, has_noise=has_noise),
+                          sigma=0.55, spread=1.3, noise_scale=0.1)
+    inputs = _torch(tied_planner_inputs(
+        random_planner_inputs(203, T, S, has_noise, seed=10 * T + S)))
+    views = strided_planner_views(inputs)
+    for x in views[1:2] + views[3:6]:
+        assert not x.is_contiguous()
+    ref = fpc.best_positions_plain(p, *inputs)
+    got = _host_run(host_planner, p, views)
+    assert torch.equal(got, ref), (got - ref).abs().max()
+    assert torch.equal(fpc.best_positions_plain(p, *views), ref)
 
 
 def test_planner_wrapper_on_the_cpu():

@@ -194,7 +194,7 @@ def test_fused_step_gradients_match_plain():
 @pytest.mark.parametrize("module,structs", [
     (physics_cuda, ("Tables", "Dims")),
     (raycast_cuda, ("CastTable",)),
-    (football_policy_cuda, ("Params",)),
+    (football_policy_cuda, ("Params", "Operands")),
 ])
 def test_kernel_structs_match_ctypes_mirrors(module, structs, tmp_path):
     """The structs a wrapper fills for its kernel have the C layout: every

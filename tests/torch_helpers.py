@@ -3,7 +3,11 @@
 Nothing here imports JAX, so ``chip_smoke.py`` can use it on a machine
 that has PyTorch only.
 """
+import contextlib
 import math
+import os
+import re
+import tempfile
 
 import numpy as np
 import torch
@@ -376,6 +380,43 @@ def random_planner_inputs(B, T, S, has_noise, seed):
     return agents, target, samples, ball, tnet, onet, vn
 
 
+def tied_planner_inputs(inputs):
+    """``random_planner_inputs``'s operands with exact ties among the
+    candidates (numpy, copies).  In every third env the ball and all
+    agents sit at one point on the pitch's axis (y = 0, the nets' line)
+    and each sample mirrors the one before it in y: the two candidates lie
+    apart but their values are equal to the bit (every term of the value is
+    even in y there; the value noise is repeated likewise).  In every third
+    env from the second the samples are 50x, clamped to the pitch's corners
+    and edges, where candidates coincide."""
+    agents, target, samples, ball, tnet, onet, vn = (
+        None if x is None else x.copy() for x in inputs)
+    rep = slice(0, None, 3)
+    ball[rep, 1] = 0.0
+    agents[rep] = ball[rep, None]
+    for j in range(1, samples.shape[2]):
+        samples[rep, :, j, 0] = samples[rep, :, j - 1, 0]
+        samples[rep, :, j, 1] = -samples[rep, :, j - 1, 1]
+        if vn is not None:
+            vn[rep, :, j + 1] = vn[rep, :, j]
+    samples[1::3] *= 50
+    return agents, target, samples, ball, tnet, onet, vn
+
+
+def strided_planner_views(inputs):
+    """The planner's operands (tensors) with ``curr_target`` a view of a
+    wider ``[B, T, 3]`` buffer and the ball and the nets columns of one
+    stacked ``[B, 5, 2]`` state, as the scenario hands them over."""
+    agents, target, samples, ball, tnet, onet, vn = inputs
+    B, T = target.shape[:2]
+    wide = target.new_zeros((B, T, 3))
+    wide[..., :2] = target
+    state = torch.stack([ball.new_zeros(B, 2), ball, tnet, onet,
+                         ball.new_zeros(B, 2)], dim=1)
+    return (agents, wide[..., :2], samples, state[:, 1], state[:, 2],
+            state[:, 3], vn)
+
+
 # A planner output that moves by more than this from the plain version's
 # picked another candidate; such a row must be a near tie: its candidate's
 # value within PLANNER_TIE of the best value.
@@ -703,3 +744,100 @@ def poses_near_self(tables, B, A, seed, min_gap=40):
     rot = rng.uniform(-math.pi, math.pi, (B, A)).astype(np.float32)
     dev = tables.center.device
     return tuple(torch.as_tensor(x, device=dev) for x in (pos, rot, pid))
+
+
+# The device kernel each launch counter of ``ops.launch_counts`` counts:
+# its name in a torch.profiler trace holds this.
+KERNEL_NAMES = {
+    "physics_step": "physics_step_kernel",
+    "raycast": "cast_rays_kernel",
+    "football_policy": "best_positions_kernel",
+    "ppo_update": "ppo_update_kernel",
+    "agent_geometry": "agent_geometry",
+    "pair_collisions": "pair_collisions_kernel",
+    "neighbor_obs": "neighbor_obs_kernel",
+}
+
+
+@contextlib.contextmanager
+def kept_graphs():
+    """CUDA graphs (``torch.cuda.CUDAGraph``) made inside keep their
+    captured graph beside the instantiated one (``keep_graph=True``), so
+    that ``graph_kernels`` can read them after their replays.  They are
+    reset on leaving: use them only inside.  (A kept graph that the
+    garbage collector destroys during a later capture invalidates that
+    capture; the graphs' debug mode would keep every later graph too.)"""
+    made, kept = torch.cuda.CUDAGraph, []
+
+    class Kept(made):
+        def __new__(cls, keep_graph=False):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph=False):
+            super().__init__(True)
+            kept.append(self)
+
+    torch.cuda.CUDAGraph = Kept
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = made
+        torch.cuda.synchronize()
+        for graph in kept:
+            graph.reset()
+
+
+def graph_kernels(graph) -> dict:
+    """The kernel nodes of ``graph`` (made under ``kept_graphs``) counted by
+    name, ``{counter: nodes}`` for each counter of KERNEL_NAMES with at
+    least one, read from the graph's DOT dump (the CUDA driver API's
+    ``cuGraphDebugDotPrint``, else ``CUDAGraph.debug_dump``).  A replay
+    launches each node of its graph once: unlike a torch.profiler trace
+    of a replay, which now and then drops a kernel's record, this is
+    exact."""
+    import ctypes
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        verbose = 1  # CU_GRAPH_DEBUG_DOT_FLAGS_VERBOSE
+        rc = ctypes.CDLL("libcuda.so.1").cuGraphDebugDotPrint(
+            ctypes.c_void_p(graph.raw_cuda_graph()), path.encode(),
+            ctypes.c_uint(verbose))
+        if rc or not os.path.exists(path):
+            graph.debug_dump(path)
+        if not os.path.exists(path):
+            raise RuntimeError(
+                f"no DOT dump of the graph (cuGraphDebugDotPrint returned"
+                f" {rc}): was it made under kept_graphs()?")
+        with open(path) as f:
+            dot = f.read()
+    # one chunk a node: from its definition to the next one
+    nodes = re.split(r'^\s*"?graph_\d+_node_\d+"?\s*\[', dot,
+                     flags=re.M)[1:]
+    if not nodes:
+        raise RuntimeError(f"no node in the graph's DOT dump: {dot[:400]!r}")
+    counts = {k: sum(key in n for n in nodes)
+              for k, key in KERNEL_NAMES.items()}
+    return {k: n for k, n in counts.items() if n}
+
+
+def traced_launches(fn, tries=3):
+    """Run ``fn`` (on the card) under torch.profiler ``tries`` times and
+    count the device kernels of each run by name: ``{counter: kernels}``
+    for each counter of KERNEL_NAMES with at least one, each the most of
+    its ``tries`` counts (the profiler now and then drops a kernel's
+    event; it never adds one).  Unlike the wrappers' host counts, this
+    sees what a CUDA graph's replay runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        for k, key in KERNEL_NAMES.items():
+            counts[k] = max(counts.get(k, 0), sum(key in n for n in names))
+    return {k: n for k, n in counts.items() if n}

@@ -1047,6 +1047,14 @@ class World:
         group, slot = found
         return group.cast(self._state)[slot]
 
+    def drop_cast_caches(self):
+        """Forget every LIDAR group's last cast, so that the next measure
+        casts.  A CUDA graph's capture starts so (a captured step must cast
+        each group), and a replay ends so: it rewrites the state's tensors
+        without moving their versions."""
+        for group, _ in self._lidar_groups.values():
+            group.out = group.read = None
+
     def _group_lidars(self, lidar):
         """Group every LIDAR of the world's agents, and ``lidar``, by (filter,
         base angles, max_range), at most MAX_ORIGINS agents a group.  A

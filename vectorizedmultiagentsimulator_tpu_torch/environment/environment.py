@@ -397,8 +397,12 @@ class Environment:
     # Random actions (environment.py:525-607), drawn from the world's
     # generator on the env's device.
     # ------------------------------------------------------------------ #
-    def get_random_action(self, agent: Agent) -> Tensor:
-        g = self.world.generator
+    def get_random_action(self, agent: Agent,
+                          generator: Optional[torch.Generator] = None
+                          ) -> Tensor:
+        """A uniform random action of ``agent`` for every env, drawn from
+        ``generator`` (the world's by default)."""
+        g = self.world.generator if generator is None else generator
         B = self.num_envs
         if self.continuous_actions:
             u_range = agent.action.u_range_tensor
@@ -426,8 +430,10 @@ class Environment:
             0, int(action_space.n), (B,), generator=g, device=self.device
         )
 
-    def get_random_actions(self) -> Sequence[Tensor]:
-        return [self.get_random_action(agent) for agent in self.agents]
+    def get_random_actions(self, generator: Optional[torch.Generator] = None
+                           ) -> Sequence[Tensor]:
+        return [self.get_random_action(agent, generator)
+                for agent in self.agents]
 
     # ------------------------------------------------------------------ #
     # Action decoding (environment.py:609-749)

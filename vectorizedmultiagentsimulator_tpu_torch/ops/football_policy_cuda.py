@@ -7,11 +7,13 @@ teammate the planner builds ``S + 1`` candidate targets (the current target,
 then the samples: even samples centred on the ball, odd ones on the agent),
 clamps them to the pitch, scores them with the 5-term value of
 ``AgentPolicy.get_pos_value`` and returns the first-max candidate.  The
-samples (and the optional value noise) are drawn outside, so the kernel is
-a pure function of its operands.  This module holds:
+normals of the samples (and the optional value noise) are drawn outside,
+unscaled; the kernel and the plain version scale them by the same fp32
+products (``PlannerParams.sigma``, ``spread`` and ``noise_scale``), so the
+kernel is a pure function of its operands.  This module holds:
 
 * ``PlannerParams`` and ``planner_params(policy)``: the static planner
-  configuration, as in the JAX package;
+  configuration, as in the JAX package, and the scales of the draws;
 * ``candidate_values_plain`` and ``best_positions_plain``: the plain
   PyTorch version, the counterpart of the JAX package's
   ``best_positions_jnp`` (the same formulation: the stacked
@@ -24,11 +26,14 @@ a pure function of its operands.  This module holds:
 * ``LAUNCHES``: the number of kernel launches, counted where the kernel is
   launched and nowhere else.
 
-Shapes: ``agents_pos [B, T, 2]``, ``curr_target [B, T, 2]``, ``samples [B,
-T, S, 2]`` (already scaled), ``ball_pos``, ``target_net_pos`` and
-``own_net_pos [B, 2]``, ``value_noise [B, T, S + 1]`` or None; the result
-is ``[B, T, 2]``, all float32.  The kernel is built at first use by
-:mod:`.cuda_build`.
+Shapes: ``agents_pos [B, T, 2]``, ``curr_target [B, T, 2]``, ``normals [B,
+T, S, 2]`` (the samples are ``normals * sigma * spread``), ``ball_pos``,
+``target_net_pos`` and ``own_net_pos [B, 2]``, ``value_noise [B, T, S + 1]``
+(times ``noise_scale``) or None; the result is ``[B, T, 2]``, all float32.
+On the card ``agents_pos``, ``normals`` and ``value_noise`` are contiguous;
+``curr_target`` and the three positions may be views with any batch (and
+teammate) stride and a unit last stride, such as the columns of the world's
+``state.pos``.  The kernel is built at first use by :mod:`.cuda_build`.
 """
 from __future__ import annotations
 
@@ -64,6 +69,11 @@ class PlannerParams(NamedTuple):
     wall_l2: float  # pitch_length/2
     margin0: float  # replan_margin + 3*(1 - decision_strength)
     has_noise: bool  # decision_strength != 1 -> value-noise operand
+    # The scales of the draws, each one fp32 product in this order:
+    # samples = normals * sigma * spread, noise = value_noise * noise_scale.
+    sigma: float = 1.0
+    spread: float = 1.0  # 1 + 3*(1 - decision_strength)
+    noise_scale: float = 1.0  # 1 - decision_strength
 
 
 def planner_params(policy) -> PlannerParams:
@@ -81,6 +91,9 @@ def planner_params(policy) -> PlannerParams:
         wall_l2=float(world.pitch_length / 2),
         margin0=float(policy.replan_margin + 3 * (1 - ds)),
         has_noise=bool(ds != 1),
+        sigma=float(policy.sigma),
+        spread=float(1 + 3 * (1 - ds)),
+        noise_scale=float(1 - ds),
     )
 
 
@@ -91,8 +104,22 @@ class _Params(ctypes.Structure):
 
     _fields_ = [("T", _I), ("S", _I), ("has_noise", _I)] + [
         (n, _F) for n in ("clamp_y", "clamp_x", "goal_y", "goal_x_hi",
-                          "wall_w2", "wall_l2", "margin0")
+                          "wall_w2", "wall_l2", "margin0", "sigma", "spread",
+                          "noise_scale")
     ]
+
+
+_L = ctypes.c_longlong
+
+
+class _Operands(ctypes.Structure):
+    """``Operands`` of csrc/football_policy.cu, field for field: the
+    operands' addresses and strides (in floats) of one call."""
+
+    _fields_ = [("agents_pos", _P), ("curr_target", _P), ("ct_b", _L),
+                ("ct_t", _L), ("normals", _P), ("ball", _P), ("ball_b", _L),
+                ("target_net", _P), ("tnet_b", _L), ("own_net", _P),
+                ("onet_b", _L), ("noise", _P), ("out", _P), ("B", _I)]
 
 
 _structs = {}
@@ -105,6 +132,7 @@ def _struct(p: PlannerParams) -> _Params:
         s = _structs[p] = _Params(
             p.T, p.S, int(p.has_noise), p.clamp_y, p.clamp_x, p.goal_y,
             p.clamp_x + p.goal_x, p.wall_w2, p.wall_l2, p.margin0,
+            p.sigma, p.spread, p.noise_scale,
         )
     return s
 
@@ -129,22 +157,21 @@ def _norm2(x: Tensor, y: Tensor) -> Tensor:
     return torch.sqrt(x * x + y * y)
 
 
-def candidate_values_plain(p: PlannerParams, agents_pos, curr_target, samples,
+def candidate_values_plain(p: PlannerParams, agents_pos, curr_target, normals,
                            ball_pos, target_net_pos, own_net_pos,
                            value_noise=None):
     """The clamped candidates and their values: ``(px, py, values)``, each
     ``[B, T, S + 1]``; candidate 0 is ``curr_target``, candidate ``j + 1``
-    is sample ``j`` around the ball (even ``j``) or the agent (odd ``j``).
-    ``values`` include the value noise and candidate 0's margin."""
+    is sample ``j`` (``normals[..., j, :] * sigma * spread``) around the
+    ball (even ``j``) or the agent (odd ``j``).  ``values`` include the
+    value noise (``value_noise * noise_scale``) and candidate 0's margin."""
     T, S = p.T, p.S
     ax, ay = agents_pos[..., 0], agents_pos[..., 1]  # [B, T]
     bx, by = ball_pos[:, None, 0:1], ball_pos[:, None, 1:2]  # [B, 1, 1]
-    centre_x = torch.stack(
-        [ball_pos[:, None, 0].expand_as(ax) if j % 2 == 0 else ax
-         for j in range(S)], dim=-1)  # [B, T, S]
-    centre_y = torch.stack(
-        [ball_pos[:, None, 1].expand_as(ay) if j % 2 == 0 else ay
-         for j in range(S)], dim=-1)
+    on_ball = torch.arange(S, device=ax.device) % 2 == 0  # [S]
+    centre_x = torch.where(on_ball, bx, ax[..., None])  # [B, T, S]
+    centre_y = torch.where(on_ball, by, ay[..., None])
+    samples = normals * p.sigma * p.spread
     rx = torch.cat([curr_target[..., 0:1], samples[..., 0] + centre_x], -1)
     ry = torch.cat([curr_target[..., 1:2], samples[..., 1] + centre_y], -1)
 
@@ -208,19 +235,19 @@ def candidate_values_plain(p: PlannerParams, agents_pos, curr_target, samples,
         value = value + other_agent_value
     value = (value + ball_dist_value + side_value + defend_value) / 5
     if p.has_noise:
-        value = value + value_noise
+        value = value + value_noise * p.noise_scale
     value = torch.cat([value[..., :1] + p.margin0, value[..., 1:]], -1)
     return px, py, value
 
 
-def best_positions_plain(p: PlannerParams, agents_pos, curr_target, samples,
+def best_positions_plain(p: PlannerParams, agents_pos, curr_target, normals,
                          ball_pos, target_net_pos, own_net_pos,
                          value_noise=None) -> Tensor:
     """The plain PyTorch version of the kernel: the first-max candidate of
     ``candidate_values_plain`` (strict ``>``: ties keep the earliest),
     ``[B, T, 2]``."""
     px, py, values = candidate_values_plain(
-        p, agents_pos, curr_target, samples, ball_pos, target_net_pos,
+        p, agents_pos, curr_target, normals, ball_pos, target_net_pos,
         own_net_pos, value_noise)
     best_x, best_y, best_val = px[..., 0], py[..., 0], values[..., 0]
     for k in range(1, p.S + 1):
@@ -245,34 +272,33 @@ def _library():
     global _fn
     if _fn is None:
         _fn = cuda_build.entry_point(
-            SOURCE, "vmt_football_best_positions", [_P] * 8 + [_P, _I, _P]
-        )
+            SOURCE, "vmt_football_best_positions", [_P, _P, _P])
     return _fn
 
 
-def launch(p: PlannerParams, agents_pos, curr_target, samples, ball_pos,
-           target_net_pos, own_net_pos, value_noise=None) -> Tensor:
-    """Launch the kernel on PyTorch's current stream; returns the best
-    positions ``[B, T, 2]``, allocated here."""
-    global LAUNCHES
-    dev = agents_pos.device
-    if dev.type != "cuda":
-        raise ValueError(f"the kernel runs on CUDA tensors, got {dev}")
+def operands(p: PlannerParams, agents_pos, curr_target, normals, ball_pos,
+             target_net_pos, own_net_pos, value_noise, out) -> _Operands:
+    """The kernel's ``Operands`` for these tensors (on one device, checked
+    here): their addresses and strides.  Raises on a shape, type or layout
+    the kernel does not take."""
     if p.T < 1 or p.S < 0:
         raise ValueError(f"T={p.T}, S={p.S}: the kernel takes T >= 1, S >= 0")
     if (value_noise is None) == p.has_noise:
         raise ValueError("value_noise must be given iff p.has_noise")
     B = agents_pos.shape[0]
     T, S = p.T, p.S
-    checks = [("agents_pos", agents_pos, (B, T, 2)),
-              ("curr_target", curr_target, (B, T, 2)),
-              ("samples", samples, (B, T, S, 2)),
-              ("ball_pos", ball_pos, (B, 2)),
-              ("target_net_pos", target_net_pos, (B, 2)),
-              ("own_net_pos", own_net_pos, (B, 2))]
+    dev = agents_pos.device
+    # (name, tensor, shape, whole tensor contiguous: else the last stride 1)
+    checks = [("agents_pos", agents_pos, (B, T, 2), True),
+              ("curr_target", curr_target, (B, T, 2), False),
+              ("normals", normals, (B, T, S, 2), True),
+              ("ball_pos", ball_pos, (B, 2), False),
+              ("target_net_pos", target_net_pos, (B, 2), False),
+              ("own_net_pos", own_net_pos, (B, 2), False),
+              ("out", out, (B, T, 2), True)]
     if p.has_noise:
-        checks.append(("value_noise", value_noise, (B, T, S + 1)))
-    for name, x, shape in checks:
+        checks.append(("value_noise", value_noise, (B, T, S + 1), True))
+    for name, x, shape, whole in checks:
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, expected {dev}")
         if x.dtype != torch.float32:
@@ -280,17 +306,35 @@ def launch(p: PlannerParams, agents_pos, curr_target, samples, ball_pos,
         if tuple(x.shape) != shape:
             raise ValueError(
                 f"{name} has shape {tuple(x.shape)}, expected {shape}")
-        if not x.is_contiguous():
+        if whole and not x.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    out = torch.empty((B, T, 2), dtype=torch.float32, device=dev)
-    err = _library()(
-        agents_pos.data_ptr(), curr_target.data_ptr(), samples.data_ptr(),
-        ball_pos.data_ptr(), target_net_pos.data_ptr(),
-        own_net_pos.data_ptr(),
-        value_noise.data_ptr() if p.has_noise else None, out.data_ptr(),
-        ctypes.addressof(_struct(p)), B,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+        if not whole and x.stride(-1) != 1:
+            raise ValueError(
+                f"{name} has strides {x.stride()}: the kernel takes a unit"
+                " last stride")
+    return _Operands(
+        agents_pos.data_ptr(), curr_target.data_ptr(), curr_target.stride(0),
+        curr_target.stride(1), normals.data_ptr(), ball_pos.data_ptr(),
+        ball_pos.stride(0), target_net_pos.data_ptr(),
+        target_net_pos.stride(0), own_net_pos.data_ptr(),
+        own_net_pos.stride(0),
+        value_noise.data_ptr() if p.has_noise else None, out.data_ptr(), B)
+
+
+def launch(p: PlannerParams, agents_pos, curr_target, normals, ball_pos,
+           target_net_pos, own_net_pos, value_noise=None) -> Tensor:
+    """Launch the kernel on PyTorch's current stream; returns the best
+    positions ``[B, T, 2]``, allocated here."""
+    global LAUNCHES
+    dev = agents_pos.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel runs on CUDA tensors, got {dev}")
+    out = torch.empty((agents_pos.shape[0], p.T, 2), dtype=torch.float32,
+                      device=dev)
+    ops = operands(p, agents_pos, curr_target, normals, ball_pos,
+                   target_net_pos, own_net_pos, value_noise, out)
+    err = _library()(ctypes.addressof(ops), ctypes.addressof(_struct(p)),
+                     torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"planner kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -299,9 +343,9 @@ def launch(p: PlannerParams, agents_pos, curr_target, samples, ball_pos,
 
 class _FusedBestPositions(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, p, agents_pos, curr_target, samples, ball_pos,
+    def forward(ctx, p, agents_pos, curr_target, normals, ball_pos,
                 target_net_pos, own_net_pos, value_noise):
-        inputs = (agents_pos, curr_target, samples, ball_pos, target_net_pos,
+        inputs = (agents_pos, curr_target, normals, ball_pos, target_net_pos,
                   own_net_pos) + ((value_noise,) if p.has_noise else ())
         ctx.save_for_backward(*inputs)
         ctx.p = p
@@ -330,18 +374,19 @@ class _FusedBestPositions(torch.autograd.Function):
 
 
 def fused_best_positions(p: PlannerParams, agents_pos: Tensor,
-                         curr_target: Tensor, samples: Tensor,
+                         curr_target: Tensor, normals: Tensor,
                          ball_pos: Tensor, target_net_pos: Tensor,
                          own_net_pos: Tensor,
                          value_noise: Optional[Tensor] = None) -> Tensor:
     """The planner's best positions ``[B, T, 2]``: the kernel on CUDA
     tensors, ``best_positions_plain`` on CPU tensors; differentiable
     through ``best_positions_plain``.  ``value_noise`` is given iff
-    ``p.has_noise``."""
+    ``p.has_noise``; both it and ``normals`` are unscaled draws (see
+    ``PlannerParams``)."""
     if (value_noise is None) == p.has_noise:
         raise ValueError(
             "fused_best_positions: value_noise must be given iff p.has_noise"
             f" (has_noise={p.has_noise})")
-    return _FusedBestPositions.apply(p, agents_pos, curr_target, samples,
+    return _FusedBestPositions.apply(p, agents_pos, curr_target, normals,
                                      ball_pos, target_net_pos, own_net_pos,
                                      value_noise)

@@ -1340,16 +1340,13 @@ class AgentPolicy:
         (reference football.py:1871-1915): [B, T, 2] best candidate
         positions with one sample draw for the whole team.
 
-        The candidate build, the 5-term value and the first-max fold run in
-        the hand-written CUDA kernel of ``ops/football_policy_cuda.py`` on
-        the card, and in its plain version on the CPU; both take the same
-        pre-drawn samples."""
+        The sample scaling, the candidate build, the 5-term value and the
+        first-max fold run in the hand-written CUDA kernel of
+        ``ops/football_policy_cuda.py`` on the card, and in its plain
+        version on the CPU; both take the same unscaled draws, and the
+        ball's and nets' positions as the columns of the world's state."""
         B, T = agents_pos.shape[:2]
-        samples = (
-            self.planner_normals(B, T)
-            * self.sigma
-            * (1 + 3 * (1 - self.decision_strength))
-        )
+        normals = self.planner_normals(B, T)
         # a cheap static build from the current attributes, so a later
         # change to decision_strength, nsamples or the pitch is never stale
         params = football_policy_cuda.planner_params(self)
@@ -1360,15 +1357,15 @@ class AgentPolicy:
                 (B, T, self.nsamples + 1),
                 generator=self.world.generator,
                 device=self.world.device,
-            ) * (1 - self.decision_strength)
+            )
         return football_policy_cuda.fused_best_positions(
             params,
             agents_pos,
-            curr_target.contiguous(),
-            samples,
-            self.ball.state.pos.contiguous(),
-            self.target_net.state.pos.contiguous(),
-            self.own_net.state.pos.contiguous(),
+            curr_target,
+            normals,
+            self.ball.state.pos,
+            self.target_net.state.pos,
+            self.own_net.state.pos,
             value_noise,
         )
 
