@@ -14,7 +14,8 @@ Phases, one line each:
      on the card.  Physics, one step: the `spheres`, `clamps`,
      `boxes_lines`, `hollow_box` and `gravity_friction` worlds of
      tests/physics_configs.py at 4096 envs, and every main path below at
-     30k envs from its reset state, from random inputs and after 10 steps.
+     its envs (30k; road_traffic and discovery 10k) from its reset state,
+     from random inputs and after 10 steps.
      Joints: the `joints` world and torch_helpers.JOINTS_STATIC_ROTATION
      (static fixed rotations) at 4096 envs, posed as the goldens are (held
      at 1e-4 + 1e-4|ref|) and from random inputs; asym_joint,
@@ -30,8 +31,9 @@ Phases, one line each:
      each joint world.
      Ray cast: every LIDAR group of each main path after those 10 steps
      (navigation's and flocking's four LIDARs, one launch from the four
-     agents, each skipping itself) and its first agent's LIDAR alone (one
-     origin), the tests/golden/raycast.npz scene tiled to 30k envs with
+     agents, each skipping itself; discovery's five target LIDARs over its
+     seven targets) and its first agent's LIDAR alone (one origin), the
+     tests/golden/raycast.npz scene tiled to 30k envs with
      random poses, axis-aligned rays against unrotated boxes, and the
      golden shapes on the edge of the kernel's reach test
      (torch_helpers.poses_at_cast_reach), each from the agent alone and
@@ -93,20 +95,27 @@ Phases, one line each:
   3. the main paths: make_env(name, num_envs, device="cuda") for
      transport, simple_spread, navigation, flocking, balance, football
      (5v5, the red team's scripted AI), joint_passage and buzz_wire (the
-     physics kernel's joint branch) at 30k envs and road_traffic (20
-     vehicles, the CPM-Lab map) at 10k, reset, 100 env.step calls under
+     physics kernel's joint branch) at 30k envs, road_traffic (20
+     vehicles, the CPM-Lab map) at 10k and discovery (5 agents, 7 targets)
+     at 10k, reset, 100 env.step calls under
      torch.cuda.set_sync_debug_mode("error") (any host sync fails the run);
      outputs finite and of the JAX package's shapes; exactly one physics
      launch per step, one ray-cast launch per LIDAR group and step (1 a
-     step in navigation and flocking, none elsewhere), one planner launch per AI
-     team and step (football) and one launch of each road kernel a step
-     (road_traffic), each count set to 0 just before the run and read just
-     after; road_traffic with map '3' (10 agents), whose done() re-places
-     agents every step, likewise (two agent-geometry launches a step).
+     step in navigation, flocking and discovery, none elsewhere), one
+     planner launch per AI team and step (football) and one launch of each
+     road kernel a step (road_traffic), each count set to 0 just before
+     the run and read just after; discovery's covered targets counted on
+     the card (some must respawn); then a masked reset of about half the
+     envs under the same check; road_traffic with map '3' (10 agents),
+     whose done() re-places agents every step, likewise (two
+     agent-geometry launches a step).  The other scenarios of the slice
+     (OTHER_PATHS: the MPE suite, sampling, wheel, passage, ball_passage,
+     reverse_transport, dropout) likewise over 10 steps at 1024 envs.
      Then each CUDA env against the CPU env (plain path) from one state
      over 10 steps at 64 envs, football's two envs fed the same planner
-     samples, road_traffic's without observation noise, the joint paths
-     at tests/test_scenario_parity.py's tolerance of the scenario.  The
+     samples, road_traffic's without observation noise, discovery's
+     covered targets leaving the arena (targets_respawn=False), the joint
+     paths at tests/test_scenario_parity.py's tolerance of the scenario.  The
      joint worlds that take the plain path: waterfall at 64 envs and the
      `joints_fixed_rotation` world (rotation inferred per env), no physics
      launch in 10 steps, finite state.  Then training:
@@ -116,24 +125,27 @@ Phases, one line each:
      changed, the spawner's give-ups printed; the same for navigation (ray
      casts in the rollout) with 16-step rollouts, and for transport@4096
      with a hidden-256 trunk (16-step rollouts, one iteration);
-  4. env-steps/s of each 100-step rollout through the kernels and with
-     the kernels forced off (the world on its plain physics, the ray cast
-     on cast_rays_plain, the planner on best_positions_plain, the road
-     geometry on geometry_plain and neighbor_obs_plain), in turns
+  4. env-steps/s of each 100-step rollout through the kernels and of
+     50 steps with the kernels forced off (the world on its plain physics,
+     the ray cast on cast_rays_plain, the planner on best_positions_plain,
+     the road geometry on geometry_plain and neighbor_obs_plain), in turns
      (kernel, plain, plain, kernel), timed with CUDA events; then
      training env-steps/s of simple_spread@4096,
      transport@4096 and transport@16384 with the PPO kernel and with the
      autograd update, in turns, and the rollout and update time of an
      iteration;
-  5. a torch.profiler trace of 20 steady steps of each main path,
-     kernels on and off: wall ms a step (CUDA events, without the
-     profiler), device busy ms a step, idle share, device kernels a step,
+  5. a torch.profiler trace of 20 steady steps of each main path with
+     the kernels on and 10 with them off (and of discovery with
+     targets_respawn=False, kernels on: its step without the respawn):
+     wall ms a step (CUDA events, without the profiler), device busy ms a
+     step, idle share, device kernels a step,
      and each kernel's device ms a step; then for each training cell the
      host's enqueue time of a rollout step split into env.step, the masked
      reset and the rest, and one training iteration under the profiler;
   6. the rollout as a CUDA graph (parallel/rollout.py): on every main path
-     at 1024 envs, and transport at 30k, two 10-step graph rollouts in a
-     row (capture and replay, then a replay from the graph's own final
+     and every scenario of OTHER_PATHS at 1024 envs, and transport at 30k,
+     two 10-step graph rollouts in a row (capture and replay, then a
+     replay from the graph's own final
      state) against the eager loop from the same state and generator
      states: every output, the final state and the world generator's
      state equal to the bit, and the replayed launches a step those of
@@ -142,7 +154,13 @@ Phases, one line each:
      graph in turns (eager, graph, graph, eager): env-steps/s, the
      capture's time and peak memory, and 20 graph steps under the
      profiler (wall, device busy, idle share, device kernels and launches
-     a replayed step); then the port bench once
+     a replayed step); each scenario of OTHER_PATHS at 30k: make_env's
+     seconds and peak memory (its first reset: sampling's normalize_pdf),
+     a masked reset's ms and peak memory, and the graph alone (a 25-step
+     rollout captured and replayed twice: env-steps/s, capture s, peak
+     memory; its graph-vs-eager check above without the profiler's
+     traces);
+     then the port bench once
      (`python -m vectorizedmultiagentsimulator_tpu_torch.bench`,
      transport@30k).
 
@@ -181,6 +199,11 @@ N_STEPS = 100
 # Phase 5's steady window a path: joint_passage's plain path launches
 # 13,000 device kernels a step, and the profiler's events cost host time.
 PROFILE_STEPS = 20
+# The plain versions' windows in phases 4 (steps timed) and 5 (steps
+# profiled): a plain joint or road step takes 60-110 ms, and the script
+# must stay well inside its time limit as the slices add paths.
+PLAIN_STEPS = 50
+PLAIN_PROFILE_STEPS = 10
 # Physics kernel vs plain, one step from identical inputs: the two sum
 # each entity's fp32 forces in another order, and the card's libm is not
 # the CPU's; contact penalties (collision_force 100 over a 1e-3 margin)
@@ -212,6 +235,10 @@ AB_GROUPS = ("joint", "road", "lidar", "football", "train")
 # launches a step, road-kernel launches a step: agent geometry, pair,
 # neighbour).  road_traffic runs at 10k envs: the plain version's [B, A, 5,
 # 184] fp32 intermediates, several alive at once, are 0.74 GB each there.
+# discovery runs at the 10k of BASELINE.md's "navigation/discovery with
+# LIDAR @10k" and of the JAX package's own cell (BENCHMARKS.md:21): 5
+# agents whose five target LIDARs (15 rays over 7 targets) are one group,
+# covered targets respawned inside reward() by a spawner of fixed rounds.
 MAIN_PATHS = [
     ("transport", N_ENVS, 4, 11, 0, 0, (0, 0, 0)),
     ("simple_spread", N_ENVS, 3, 14, 0, 0, (0, 0, 0)),
@@ -222,12 +249,30 @@ MAIN_PATHS = [
     ("joint_passage", N_ENVS, 2, 10, 0, 0, (0, 0, 0)),
     ("buzz_wire", N_ENVS, 2, 6, 0, 0, (0, 0, 0)),
     ("road_traffic", 10_000, 20, 32, 0, 0, (1, 1, 1)),
+    ("discovery", 10_000, 5, 19, 1, 0, (0, 0, 0)),
+]
+# The other scenarios of the slice (the MPE suite, sampling, wheel,
+# passage, ball_passage, reverse_transport, dropout), in MAIN_PATHS' form
+# with no agent count or obs width (their agents observe different
+# widths): each steps GRAPH_STEPS steps at GRAPH_ENVS envs under the sync
+# check in phase 3 and against the CPU env at 64 envs; phase 6 holds its
+# graph rollout to the eager loop at GRAPH_ENVS and times the graph at
+# N_ENVS, BASELINE.md's "full MPE suite @30k".
+OTHER_PATHS = [
+    (name, N_ENVS, None, None, casts, 0, (0, 0, 0)) for name, casts in (
+        ("simple", 0), ("simple_adversary", 0), ("simple_crypto", 0),
+        ("simple_push", 0), ("simple_reference", 0), ("simple_tag", 0),
+        ("simple_world_comm", 0), ("sampling", 1), ("wheel", 0),
+        ("passage", 0), ("ball_passage", 0), ("reverse_transport", 0),
+        ("dropout", 0))
 ]
 # Phase 6: the graph rollout against the eager loop on every main path at
 # GRAPH_ENVS envs over GRAPH_STEPS steps (and transport at N_ENVS), twice
 # in a row; then each path's eager and graph rates at its own envs.
 GRAPH_ENVS = 1024
 GRAPH_STEPS = 10
+# The graph rollouts that time OTHER_PATHS at N_ENVS.
+OTHER_STEPS = 25
 # The joint worlds (joint_force 900 over 10-15 substeps): an ulp grows
 # about 2x a substep, so from inputs far from rest (random, or after 10
 # random steps) the kernel is held to torch_helpers.physics_diff's float64
@@ -236,7 +281,7 @@ GRAPH_STEPS = 10
 STIFF_PATHS = ("joint_passage", "buzz_wire")
 # The other joint scenarios of phase 2, at 4096 envs.
 JOINT_WORLDS = ("asym_joint", "ball_trajectory", "joint_passage_size")
-PATH_ENVS = {path[0]: path[1] for path in MAIN_PATHS}
+PATH_ENVS = {path[0]: path[1] for path in MAIN_PATHS + OTHER_PATHS}
 # road_traffic on map '3' (the intersection, 10 agents): its done()
 # re-places the agents that leave through an entry or exit segment every
 # step, one more agent-geometry launch a step.
@@ -251,8 +296,11 @@ PATH_KWARGS = {"football": dict(n_blue_agents=5, n_red_agents=5)}
 # 3 x 1.5), so it is held at 1.0 and dense_contacts prints 0.3.
 PATH_SPREAD = {"football": 1.0}
 # cuda_vs_cpu's extra kwargs: the two envs' generators differ, so
-# road_traffic's observation noise is off there.
-CPU_COMPARE_KWARGS = {"road_traffic": dict(is_add_noise=False)}
+# road_traffic's observation noise is off there, and discovery's covered
+# targets leave the arena (targets_respawn=False) instead of respawning at
+# places each generator draws for itself.
+CPU_COMPARE_KWARGS = {"road_traffic": dict(is_add_noise=False),
+                      "discovery": dict(targets_respawn=False)}
 # cuda_vs_cpu's tolerance: (base, growth a step, steps compared, share of
 # envs that may diverge), tests/test_scenario_parity.py's _DEFAULT, or its
 # _STIFF for buzz_wire (15 substeps at joint_force 900: an ulp of the
@@ -644,10 +692,14 @@ def bound(moved, ops):
 
 
 def main_path(name, envs, agents, obs_dim, casts_per_step, plans_per_step,
-              road_per_step, label=None, **kwargs):
-    """N_STEPS steps of make_env(name, envs, **kwargs) on the card with no
-    host sync; returns the physics, ray-cast and planner launches and the
-    road kernels' launches counted in that run."""
+              road_per_step, label=None, n_steps=N_STEPS, **kwargs):
+    """``n_steps`` steps of make_env(name, envs, **kwargs) on the card with
+    no host sync (agents and obs widths checked where given), then a
+    masked reset of about half the envs under the same check; returns
+    the physics, ray-cast and planner launches and the road kernels'
+    launches counted in the steps.  A scenario that respawns covered
+    targets (discovery) counts the respawns on the card and must make
+    some."""
     import torch
     from vectorizedmultiagentsimulator_tpu_torch.ops import (
         football_policy_cuda,
@@ -663,6 +715,8 @@ def main_path(name, envs, agents, obs_dim, casts_per_step, plans_per_step,
     g = torch.Generator(device="cuda").manual_seed(1)
     sizes = [env.get_agent_action_size(a) for a in env.agents]
     give_ups_before = env.world.spawn_give_ups.clone()
+    respawning = getattr(env.scenario, "targets_respawn", False)
+    respawns = torch.zeros((), dtype=torch.int64, device="cuda")
     torch.cuda.synchronize()
     physics_cuda.LAUNCHES = 0
     raycast_cuda.LAUNCHES = 0
@@ -671,12 +725,14 @@ def main_path(name, envs, agents, obs_dim, casts_per_step, plans_per_step,
         dict.fromkeys(road_geometry_cuda.KERNELS, 0))
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for _ in range(N_STEPS):
+        for _ in range(n_steps):
             actions = [
                 torch.rand((envs, s), generator=g, device="cuda") * 2 - 1
                 for s in sizes
             ]
             obs, rews, dones, _ = env.step(actions)
+            if respawning:
+                respawns += env.scenario.covered_targets.sum()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     steps, casts = physics_cuda.LAUNCHES, raycast_cuda.LAUNCHES
@@ -684,31 +740,47 @@ def main_path(name, envs, agents, obs_dim, casts_per_step, plans_per_step,
     road = tuple(road_geometry_cuda.LAUNCHES[k]
                  for k in road_geometry_cuda.KERNELS)
     torch.cuda.synchronize()
-    assert len(obs) == agents and len(rews) == agents
+    assert agents is None or (len(obs) == agents and len(rews) == agents)
     for o, r in zip(obs, rews):
-        assert tuple(o.shape) == (envs, obs_dim), o.shape
+        assert obs_dim is None or tuple(o.shape) == (envs, obs_dim), o.shape
         assert tuple(r.shape) == (envs,), r.shape
         assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(r).all())
     assert tuple(dones.shape) == (envs,) and dones.dtype == torch.bool
     s = env.world.state
     for f in ("pos", "vel", "rot", "ang_vel"):
         assert bool(torch.isfinite(getattr(s, f)).all()), f
-    expected = (N_STEPS, N_STEPS * casts_per_step, N_STEPS * plans_per_step,
-                tuple(N_STEPS * r for r in road_per_step))
+    expected = (n_steps, n_steps * casts_per_step, n_steps * plans_per_step,
+                tuple(n_steps * r for r in road_per_step))
     if (steps, casts, plans, road) != expected:
         raise AssertionError(
             f"{label}: {steps} physics, {casts} ray-cast, {plans} planner and"
-            f" {road} road-kernel launches in {N_STEPS} steps (expected"
+            f" {road} road-kernel launches in {n_steps} steps (expected"
             f" {expected})"
         )
+    if respawning and not int(respawns):
+        raise AssertionError(f"{label}: no target respawned in {n_steps}"
+                             f" steps")
+    # A masked reset (the trainer's, of the envs a mask names) under the
+    # same check.
+    mask = torch.rand((envs,), generator=g, device="cuda") > 0.5
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        reset_obs = env.reset_at(mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(bool(torch.isfinite(o).all()) for o in reset_obs)
     log(f"[3] {label}: physics lanes an env"
-        f" {env.world._kernel_tables.structs[1].lanes}; {N_STEPS} steps, no"
-        f" host sync, obs"
-        f" {agents}x[{envs}, {obs_dim}] finite, physics launches {steps},"
+        f" {env.world._kernel_tables.structs[1].lanes}; {n_steps} steps, no"
+        f" host sync, obs {len(obs)}x[{envs}, "
+        f"{'/'.join(sorted({str(o.shape[1]) for o in obs}))}] finite,"
+        f" physics launches {steps},"
         f" ray-cast launches {casts}, planner launches {plans}, road"
         f" launches (agent geometry, pair, neighbour) {road}; dones in the"
         f" last step {int(dones.sum())}, placement give-ups"
-        f" {int(env.world.spawn_give_ups - give_ups_before)}")
+        f" {int(env.world.spawn_give_ups - give_ups_before)}"
+        + (f", targets respawned {int(respawns)}" if respawning else "")
+        + f"; masked reset of {int(mask.sum())} envs, no host sync")
     return steps, casts, plans, road
 
 
@@ -1950,7 +2022,7 @@ def road_phase_2(errs):
     return times, layouts
 
 
-def graph_vs_eager(path, envs, steps=GRAPH_STEPS):
+def graph_vs_eager(path, envs, steps=GRAPH_STEPS, trace=True):
     """The graph rollout (parallel/rollout.py on the card) against the eager
     loop from one state and one generator state each: make_env(path) after
     3 random steps, ``rollout(env, n_steps=steps, generator=g)`` twice in a
@@ -1961,10 +2033,11 @@ def graph_vs_eager(path, envs, steps=GRAPH_STEPS):
     numbers the eager loop draws next).  The kernels each replay runs, the
     kernel nodes of the captured graph counted by name
     (torch_helpers.graph_kernels), must be the path's launches a step
-    (MAIN_PATHS) times ``steps``, and a third graph call's profiler trace
-    (torch_helpers.traced_launches) must show each of those kernels run
-    on the card, no more often (the profiler now and then drops a
-    kernel's record of a replay, so its count is shown, not held equal);
+    (MAIN_PATHS) times ``steps``, and with ``trace`` a third graph call's
+    profiler trace (torch_helpers.traced_launches) must show each of those
+    kernels run on the card, no more often (the profiler now and then
+    drops a kernel's record of a replay, so its count is shown, not held
+    equal);
     the wrappers' host counts, set to 0 just before the graph calls and
     read just after, must be the capture's: its warm-up step and its
     ``steps`` steps, each with the path's launches.  Returns (host counts,
@@ -2016,7 +2089,8 @@ def graph_vs_eager(path, envs, steps=GRAPH_STEPS):
         # And what the profiler sees of one more graph call (the most of
         # three traces).
         traced = {k: n / steps for k, n in traced_launches(
-            lambda: rollout(env, n_steps=steps, generator=g)).items()}
+            lambda: rollout(env, n_steps=steps, generator=g)).items()
+        } if trace else None
     env._rollout_graphs.clear()
     unequal = []
     for k, ((gl, gs, gr, gp), (el, es, er, ep)) in enumerate(
@@ -2040,8 +2114,8 @@ def graph_vs_eager(path, envs, steps=GRAPH_STEPS):
         f" (graph nodes) {replayed}, (profiler trace) {traced}, host launch"
         f" counts of the capture {counts}")
     if (unequal or replayed != expected or counts != captured
-            or traced.keys() != expected.keys()
-            or any(n > expected[k] for k, n in traced.items())):
+            or (trace and (traced.keys() != expected.keys() or any(
+                n > expected[k] for k, n in traced.items())))):
         raise AssertionError(
             f"{label}: the graph rollout differs from the eager loop"
             f" ({unequal[:8]}), or a replayed step ran {replayed} kernels"
@@ -2107,6 +2181,52 @@ def graph_rates(name, envs):
         + f", {out['kernels']:.1f} device kernels/step, launches a replayed"
         f" step (profiler trace) {launches}")
     return out
+
+
+def graph_rate(name, envs, steps):
+    """The cost of the env's construction (make_env with its first reset:
+    seconds and peak memory) and of a masked reset of about half the envs
+    (ms, CUDA events over 3, and peak memory); then the graph rollout's
+    env-steps/s alone: a ``steps``-step rollout (default policy, nothing
+    collected) captured, then replayed twice; the capture's time and peak
+    memory."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.parallel import rollout
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    env = make_path_env(name, envs)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    make_peak = torch.cuda.max_memory_allocated() / 2**30
+    mask = torch.rand((envs,), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(4)
+                      ) > 0.5
+    torch.cuda.reset_peak_memory_stats()
+    reset_ms = cuda_time_ms(lambda: env.reset_at(mask), 3)
+    reset_peak = torch.cuda.max_memory_allocated() / 2**30
+    run = lambda: rollout(env, n_steps=steps, collect=())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rates = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        rates.append(envs * steps / (time.perf_counter() - t0))
+    log(f"[6] {name}@{envs}: make_env {make_s:.2f} s, peak {make_peak:.3f}"
+        f" GiB; masked reset of {int(mask.sum())} envs"
+        f" {reset_ms:.3f} ms, peak {reset_peak:.3f} GiB; {steps}-step graph"
+        f" rollout env-steps/s {rates[0]:.6g} {rates[1]:.6g}; capture"
+        f" {capture_s:.2f} s, peak {peak:.3f} GiB")
+    env._rollout_graphs.clear()
+    return rates
 
 
 def port_bench():
@@ -2448,8 +2568,14 @@ def main():
         launches["football_policy"] += plan_count
         for kernel, count in zip(road_geometry_cuda.KERNELS, road):
             launches[kernel] += count
+    # The other scenarios of the slice, GRAPH_STEPS steps at GRAPH_ENVS.
+    for path in OTHER_PATHS:
+        steps, cast_count, _, _ = main_path(
+            path[0], GRAPH_ENVS, *path[2:], n_steps=GRAPH_STEPS)
+        launches["physics_step"] += steps
+        launches["raycast"] += cast_count
     plain_route_joints()
-    for name, *_ in MAIN_PATHS:
+    for name, *_ in MAIN_PATHS + OTHER_PATHS:
         cuda_vs_cpu(name)
     for path in TRAIN_PATHS:
         updates, steps, cast_count = train_path(*path)
@@ -2465,10 +2591,12 @@ def main():
         actions = random_actions(env, N_STEPS, seed=7)
         rates = {True: [], False: []}
         for on in (True, False, False, True):
-            rates[on].append(rollout_rate(env, actions, on))
-        log(f"[4] {name}@{env.num_envs} {N_STEPS}-step rollout env-steps/s:"
-            f" kernels {rates[True][0]:.6g} {rates[True][1]:.6g},"
-            f" plain {rates[False][0]:.6g} {rates[False][1]:.6g}")
+            rates[on].append(rollout_rate(
+                env, actions if on else actions[:PLAIN_STEPS], on))
+        log(f"[4] {name}@{env.num_envs} rollout env-steps/s: kernels"
+            f" ({N_STEPS} steps) {rates[True][0]:.6g} {rates[True][1]:.6g},"
+            f" plain ({PLAIN_STEPS} steps) {rates[False][0]:.6g}"
+            f" {rates[False][1]:.6g}")
         del env, actions
     for name, num_envs in TRAIN_CELLS:
         train_rates(name, num_envs)
@@ -2476,12 +2604,18 @@ def main():
     phase_time(4)
 
     # ---- 5: where a step's time goes ---- #
-    for name, *_ in MAIN_PATHS:
-        env = make_path_env(name)
+    # discovery again with targets_respawn=False (no spawner in its step):
+    # what the respawn costs a step.
+    for name, kwargs in [(p[0], {}) for p in MAIN_PATHS] + [
+            ("discovery", dict(targets_respawn=False))]:
+        env = make_path_env(name, **kwargs)
         actions = random_actions(env, PROFILE_STEPS, seed=8)
-        for on in (True, False):
-            wall, busy, idle, n_kernels, named = profile_steps(env, actions, on)
-            log(f"[5] {name}@{env.num_envs} {'kernels' if on else 'plain'}:"
+        for on in (True, False) if not kwargs else (True,):
+            wall, busy, idle, n_kernels, named = profile_steps(
+                env, actions if on else actions[:PLAIN_PROFILE_STEPS], on)
+            log(f"[5] {name}@{env.num_envs}"
+                f"{' targets_respawn=False' if kwargs else ''}"
+                f" {'kernels' if on else 'plain'}:"
                 f" wall {wall:.4f} ms/step, device busy {busy:.4f} ms/step,"
                 f" idle share {idle:.4f}, {n_kernels:.1f} device"
                 f" kernels/step, physics kernel {named['physics']:.4f}"
@@ -2501,8 +2635,15 @@ def main():
     for path, envs in ([(p, GRAPH_ENVS) for p in MAIN_PATHS]
                        + [(MAIN_PATHS[0], N_ENVS)]):
         graph_vs_eager(path, envs)
-    for name, envs, *_ in MAIN_PATHS:
-        graph_rates(name, envs)
+    # The other scenarios: the exact count of the graph's kernel nodes
+    # without the profiler's traces, and their graph rates over
+    # OTHER_STEPS-step rollouts (passage's capture of 100 steps took 28 s).
+    for path in OTHER_PATHS:
+        graph_vs_eager(path, GRAPH_ENVS, trace=False)
+    for name, *_ in MAIN_PATHS:
+        graph_rates(name, PATH_ENVS[name])
+    for name, *_ in OTHER_PATHS:
+        graph_rate(name, PATH_ENVS[name], OTHER_STEPS)
     port_bench()
     phase_time(6)
 
@@ -2556,6 +2697,9 @@ def main():
             # measures, grouped and as single-origin calls.
             "single_origin": cast_t["navigation"]["single"],
             "flocking": cast_t["flocking"],
+            # discovery@10k: its five target LIDARs (15 rays over 7
+            # targets) in one launch, and one alone.
+            "discovery": cast_t["discovery"],
             "enqueue_ms": cast_t["navigation"]["enqueue_ms"],
         },
         {

@@ -221,12 +221,15 @@ FIVE_A_SIDE = dict(n_blue_agents=5, n_red_agents=5)
 @pytest.mark.parametrize("scenario,kwargs,planners", [
     ("transport", {}, 0), ("simple_spread", {}, 0), ("navigation", {}, 0),
     ("flocking", {}, 0), ("balance", {}, 0), ("football", FIVE_A_SIDE, 1),
-    ("joint_passage", {}, 0), ("buzz_wire", {}, 0)])
+    ("joint_passage", {}, 0), ("buzz_wire", {}, 0), ("discovery", {}, 0),
+    ("sampling", {}, 0)])
 def test_main_path_one_launch_per_step_no_sync(cuda, scenario, kwargs,
                                                 planners):
     """One physics launch a step, one ray-cast launch per LIDAR group and
-    step (navigation's and flocking's four LIDARs are one group), one
-    planner launch per AI team and step, and no host sync over 5 steps."""
+    step (navigation's and flocking's four LIDARs are one group, as are
+    discovery's five and sampling's three), one planner launch per AI team
+    and step, and no host sync over 5 steps (discovery's respawn
+    included)."""
     env = vmt_torch.make_env(scenario, num_envs=B, device="cuda", seed=0,
                              **kwargs)
     _compare(env.world, random_step_inputs(env.world, 0.3, seed=12),
@@ -289,7 +292,17 @@ GRAPH_PATHS = [
     ("navigation", {}, 1, 0, 0), ("flocking", {}, 1, 0, 0),
     ("balance", {}, 0, 0, 0), ("football", FIVE_A_SIDE, 0, 1, 0),
     ("joint_passage", {}, 0, 0, 0), ("buzz_wire", {}, 0, 0, 0),
-    ("road_traffic", {}, 0, 0, 1)]
+    ("road_traffic", {}, 0, 0, 1),
+    # discovery respawns covered targets inside reward() (a spawner of
+    # fixed rounds), or with targets_respawn=False draws a place outside
+    # the arena every step; sampling scatters into its visited grid
+    ("discovery", {}, 1, 0, 0),
+    ("discovery", dict(targets_respawn=False), 1, 0, 0),
+    ("sampling", {}, 1, 0, 0)] + [
+    (name, {}, 0, 0, 0) for name in (
+        "simple", "simple_adversary", "simple_crypto", "simple_push",
+        "simple_reference", "simple_tag", "simple_world_comm", "wheel",
+        "passage", "ball_passage", "reverse_transport", "dropout")]
 
 
 @pytest.mark.parametrize("scenario,kwargs,casts,plans,road", GRAPH_PATHS)
@@ -540,7 +553,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.parametrize("scenario", [
     "transport", "simple_spread", "navigation", "flocking", "balance",
-    "dispersion", "simple_speaker_listener", "football", "road_traffic"])
+    "dispersion", "simple_speaker_listener", "football", "road_traffic",
+    "discovery", "sampling"])
 def test_masked_reset_no_sync(cuda, scenario):
     """``reset_at`` with a bool mask (the trainer's reset in every step)
     reads nothing from the device and leaves the other envs alone."""

@@ -364,6 +364,12 @@ def test_kernel_source_on_the_host_matches_plain_at_lane_groups(
 
 SCENARIOS_ON_THE_KERNEL = ["asym_joint", "ball_trajectory", "buzz_wire",
                            "joint_passage", "joint_passage_size"]
+# The scenarios without joints that step through the kernel too, held at
+# the strict rule from every input.
+JOINTLESS_SCENARIOS = [
+    "discovery", "sampling", "simple", "simple_adversary", "simple_crypto",
+    "simple_push", "simple_reference", "simple_tag", "simple_world_comm",
+    "wheel", "passage", "ball_passage", "reverse_transport", "dropout"]
 
 
 def _check_scenario(host_physics, scenario, lanes=None, B=16):
@@ -372,7 +378,8 @@ def _check_scenario(host_physics, scenario, lanes=None, B=16):
         pytest.skip("needs a host C++ compiler")
     env = vmt_torch.make_env(scenario, num_envs=B, device="cpu", seed=0)
     w = env.world
-    assert w._use_kernel and len(w._ordered_constraints)
+    joints = scenario in SCENARIOS_ON_THE_KERNEL
+    assert w._use_kernel and bool(len(w._ordered_constraints)) is joints
 
     def state_inputs():
         s = w.state
@@ -384,23 +391,25 @@ def _check_scenario(host_physics, scenario, lanes=None, B=16):
                           ("random", random_step_inputs(w, 0.5, 22))):
         report = physics_diff(
             w, inputs, _host_step(host_physics, w, inputs, lanes),
-            stiff=stage == "random")
+            stiff=joints and stage == "random")
         assert report["ok"], (stage, report)
     for _ in range(3):
         env.step(env.get_random_actions())
     inputs = state_inputs()
     report = physics_diff(w, inputs, _host_step(host_physics, w, inputs,
-                                                lanes), stiff=True)
+                                                lanes), stiff=joints)
     assert report["ok"], report
 
 
-@pytest.mark.parametrize("scenario", SCENARIOS_ON_THE_KERNEL)
+@pytest.mark.parametrize("scenario",
+                         SCENARIOS_ON_THE_KERNEL + JOINTLESS_SCENARIOS)
 def test_kernel_source_on_the_host_matches_plain_scenarios(host_physics,
                                                            scenario):
     """The joint scenarios' worlds from their reset state and from it
-    jittered, every constraint stretched (strict), after 3 steps (strict)
-    and from random inputs (the stiff rule where the strict one is
-    exceeded), with the lane group chosen at finalize."""
+    jittered, every constraint stretched (strict), after 3 steps and from
+    random inputs (the stiff rule where the strict one is exceeded), with
+    the lane group chosen at finalize; the scenarios without joints from
+    the same inputs, all held at the strict rule."""
     _check_scenario(host_physics, scenario)
 
 

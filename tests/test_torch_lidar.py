@@ -281,10 +281,9 @@ def host_cast(tmp_path_factory):
     return cast
 
 
-def _held(got, ref):
+def _held(got, ref, cap=MAX_RANGE):
     """Within 1e-5 + 1e-5|ref| (the host's libm against PyTorch's cos and
     sin), and no ray that hits on one side and misses on the other."""
-    cap = MAX_RANGE
     assert int(((got == cap) != (ref == cap)).sum()) == 0
     assert (ref < cap).sum() > 10  # the scene has hits to compare
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
@@ -316,15 +315,57 @@ def _scene_tensors(scene, seed):
             for x in (pos, rot, angles))
 
 
+# The LIDAR scenarios whose groups the host build casts too: discovery's
+# five target LIDARs (and, with use_agent_lidar, its agent LIDARs) and
+# sampling's agent LIDARs, the agents drawn together by ``squeeze`` so
+# that their rays meet.
+SCENARIO_SCENES = {
+    "discovery": (dict(use_agent_lidar=True), 1.0),
+    "sampling": ({}, 0.1),
+}
+
+
+def _check_scenario_groups(host_cast, scene, seed, B=64):
+    """Every LIDAR group of the scenario after 3 random steps, in one
+    launch of the host build from all its agents, against the plain
+    version from each agent over its own table."""
+    kwargs, squeeze = SCENARIO_SCENES[scene]
+    env = vmt_torch.make_env(scene, num_envs=B, device="cpu", seed=seed,
+                             **kwargs)
+    for _ in range(3):
+        env.step(env.get_random_actions())
+    w = env.world
+    pos, rot = w.state.pos.clone(), w.state.rot
+    for a in w.agents:
+        pos[:, a.index] *= squeeze
+    groups = list({id(g): g for g, _ in w._lidar_groups.values()}.values())
+    assert len(groups) == len(kwargs) + 1
+    for grp in groups:
+        args = (pos, rot, grp.angles, grp.origins, grp.table, grp.max_range)
+        got = host_cast(*args)
+        ref = raycast_cuda.cast_rays_plain(*args)
+        assert got.shape == (len(w.agents), B, grp.angles.shape[0])
+        _held(got, ref, cap=grp.max_range)
+        torch.testing.assert_close(
+            ref[1], raycast_cuda.cast_rays_plain(*args[:3], grp.origins[1],
+                                                 *args[4:]),
+            rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("scene,seed", [("golden", 0), ("random", 4),
                                         ("random", 5), ("axis", 6),
-                                        ("wide", 7), ("reach", 8)])
+                                        ("wide", 7), ("reach", 8),
+                                        ("discovery", 9), ("sampling", 10)])
 def test_host_kernel_matches_plain(host_cast, scene, seed):
     """The kernel's source on the host against ``cast_rays_plain``: one
     origin with world-frame and with base angles, and every entity as an
     origin of one launch over all seven (each skipping itself), against
     the plain version origin by origin; on spread scenes and on the edge
-    of the reach test, whose culled entities must change nothing."""
+    of the reach test, whose culled entities must change nothing; and the
+    LIDAR groups of discovery and sampling."""
+    if scene in SCENARIO_SCENES:
+        _check_scenario_groups(host_cast, scene, seed)
+        return
     pos, rot, angles = _scene_tensors(scene, seed)
     world, _ = scene_world(pos.shape[0])
     table = raycast_cuda.cast_table(world, [2, 3], [0, 1], [4, 5])

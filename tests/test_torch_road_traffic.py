@@ -765,7 +765,7 @@ def test_map_type_3_paths_within_group():
     assert ((sc.path_id.numpy() >= lo) & (sc.path_id.numpy() < lo + size)).all()
     with pytest.raises(ValueError):
         _env(2, map_type="3", n_agents=11)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1, road_traffic map '2'"):
         _env(2, map_type="2")
 
 

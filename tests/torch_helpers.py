@@ -318,6 +318,137 @@ def jax_state_arrays(jax_state):
     return out
 
 
+# tests/test_scenario_parity.py's default tolerance for a golden replay:
+# atol BASE growing GROWTH a step (at most 0.05), plus 2e-3 relative; a
+# share of at most MAX_FRAC of the envs may leave the comparison.
+GOLDEN_BASE, GOLDEN_GROWTH, GOLDEN_MAX_FRAC = 5e-4, 1.6, 0.25
+
+
+def cpu_env(scenario, num_envs, seed=0, **kwargs):
+    """The port's ``make_env(scenario)`` on the CPU."""
+    from vectorizedmultiagentsimulator_tpu_torch import make_env
+
+    return make_env(scenario, num_envs=num_envs, device="cpu", seed=seed,
+                    **kwargs)
+
+
+def replay_golden(make_env, path):
+    """``tests/golden/scenario_<name>.npz`` (recorded from the reference
+    simulator) replayed as ``tests/test_scenario_parity.py`` replays it:
+    the recorded t=0 state injected, the recorded actions stepped, the
+    states, and the observations and rewards where the file holds them
+    (rewards from t = 1), held at its default tolerance with its
+    divergence accounting.  ``make_env(scenario, num_envs, **kwargs)``
+    makes the port's env."""
+    import ast
+
+    data = np.load(path, allow_pickle=True)
+    kwargs = ast.literal_eval(str(data["kwargs_json"]))
+    name = (str(data["scenario_name"]) if "scenario_name" in data
+            else os.path.basename(path)[len("scenario_"):-len(".npz")])
+    B = data["pos"].shape[2]
+    env = make_env(name, B, **kwargs)
+    env.reset(seed=0)
+
+    names = [str(n) for n in data["entity_names"]]
+    mine = {e.name: e for e in env.world.entities}
+    assert set(names) == set(mine), (sorted(names), sorted(mine))
+    for i, n in enumerate(names):
+        e = mine[n]
+        e.set_pos(torch.as_tensor(data["pos"][0, i]))
+        e.set_rot(torch.as_tensor(data["rot"][0, i]))
+        e.set_vel(torch.as_tensor(data["vel"][0, i]))
+        e.set_ang_vel(torch.as_tensor(data["ang_vel"][0, i]))
+
+    sizes = [int(s) for s in data["action_sizes"]]
+    assert sizes == [env.get_agent_action_size(a) for a in env.agents]
+    diverged = np.zeros((B,), dtype=bool)
+    for t in range(data["actions"].shape[0]):
+        flat = data["actions"][t]
+        acts, ofs = [], 0
+        for size in sizes:
+            acts.append(torch.as_tensor(flat[:, ofs:ofs + size]))
+            ofs += size
+        obs, rews, _, _ = env.step(acts)
+        atol = min(GOLDEN_BASE * GOLDEN_GROWTH**t, 0.05)
+
+        def off(got, target):
+            bad = np.abs(got - target) > atol + 2e-3 * np.abs(target)
+            return bad.reshape(B, -1).any(axis=-1)
+
+        if "obs" in data:
+            for k, ref in enumerate(data["obs"][t + 1]):
+                diverged |= off(obs[k].numpy(), ref)
+        if "rew" in data and t >= 1:
+            for k, ref in enumerate(data["rew"][t]):
+                diverged |= off(rews[k].numpy().reshape(-1), ref)
+        for i, n in enumerate(names):
+            for field in ("pos", "vel", "rot", "ang_vel"):
+                diverged |= off(getattr(mine[n].state, field).numpy(),
+                                data[field][t + 1, i])
+        assert diverged.mean() <= GOLDEN_MAX_FRAC + 1e-9, (
+            f"{name}: {diverged.sum()}/{B} envs diverged by step {t}")
+    return env
+
+
+def held_in_parity(t, outputs, j_outputs, envs=None):
+    """One step's observations, rewards and dones of the port's env
+    (``outputs``) against the JAX env's (``j_outputs``) at atol 1e-5 growing x1.6 a step (observations
+    only in ``envs``, a bool mask, where given)."""
+    obs, rew, done = outputs[:3]
+    j_obs, j_rew, j_done = j_outputs[:3]
+    atol = 1e-5 * 1.6**t
+    keep = slice(None) if envs is None else np.asarray(envs)
+    for k in range(len(obs)):
+        np.testing.assert_allclose(
+            obs[k].numpy()[keep], np.asarray(j_obs[k])[keep], atol=atol,
+            err_msg=f"obs {k} step {t}")
+        np.testing.assert_allclose(
+            rew[k].numpy(), np.asarray(j_rew[k]), atol=atol,
+            err_msg=f"rew {k} step {t}")
+    np.testing.assert_array_equal(done.numpy(), np.asarray(j_done))
+
+
+def live_parity(jenv, env, n_steps, seed=0):
+    """The JAX env's state carried into the port (its extras keys must be
+    the port's), then both stepped with the same uniform numpy actions and
+    held by ``held_in_parity`` each step."""
+    from vectorizedmultiagentsimulator_tpu_torch.utils import (
+        state_from_numpy,
+        state_to_numpy,
+    )
+
+    arrays = jax_state_arrays(jenv.state)
+    assert set(arrays["extras"]) == set(env.world.state.extras)
+    state_from_numpy(env, arrays)
+    back = state_to_numpy(env)
+    for f in ("pos", "vel", "u", "steps"):
+        np.testing.assert_array_equal(back[f], arrays[f])
+    rng = np.random.RandomState(seed)
+    B = env.num_envs
+    sizes = [env.get_agent_action_size(a) for a in env.agents]
+    for t in range(n_steps):
+        acts = [rng.uniform(-1, 1, (B, s)).astype(np.float32) for s in sizes]
+        held_in_parity(t,
+                       env.step([torch.as_tensor(a) for a in acts]),
+                       jenv.step(acts))
+
+
+def same_seed_runs(make_env, scenario, B=8, n_steps=5):
+    """Observations of ``n_steps`` random steps of the port's ``scenario``
+    with seeds 3, 3 and 4: the first two equal to the bit, the third not."""
+    def run(seed):
+        env = make_env(scenario, B, seed=seed)
+        out = [env.reset()]
+        for _ in range(n_steps):
+            out.append(env.step(env.get_random_actions())[0])
+        return torch.stack([torch.cat(o, dim=-1) for o in out])
+
+    a, b, c = run(3), run(3), run(4)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(a, c)
+
+
 def random_ppo_inputs(spec, nb_tot, seed):
     """Inputs of one PPO minibatch update for ``spec`` (a ``PPOUpdateSpec``
     of either package), as numpy arrays drawn from ``seed``: ``(packed_fm

@@ -427,6 +427,32 @@ class Entity(Observable):
         return self._collision_filter(entity)
 
     # ------------------------------------------------------------------ #
+    # Rendering mask (reference core.py:612-619)
+    # ------------------------------------------------------------------ #
+    @property
+    def is_rendering(self) -> Tensor:
+        """Per-env ``[B]`` bool: whether the entity is drawn.  Stored in
+        extras under ``"<name>.is_rendering"`` once a scenario writes it
+        (the setter or :meth:`reset_render`, at reset).  Unwritten it reads
+        as all True without creating the key: the JAX package creates it at
+        the first read, and a key that first appears during a step would
+        change the state's layout inside a captured graph."""
+        key = self._extras_key("is_rendering")
+        if self._world.has_extra(key):
+            return self._world.get_extra(key)
+        return torch.ones((self._world.batch_dim,), dtype=torch.bool,
+                          device=self._world.device)
+
+    @is_rendering.setter
+    def is_rendering(self, value: Tensor):
+        self._world.set_extra(self._extras_key("is_rendering"), value)
+
+    def reset_render(self):
+        self.is_rendering = torch.ones(
+            (self._world.batch_dim,), dtype=torch.bool,
+            device=self._world.device)
+
+    # ------------------------------------------------------------------ #
     # State writes (reference core.py:733-761)
     # ------------------------------------------------------------------ #
     def set_pos(self, pos, batch_index=None):

@@ -3,7 +3,8 @@
 PyTorch counterpart of ``vectorizedmultiagentsimulator_tpu/dynamics``
 (reference ``vmas/simulator/dynamics/``).  Ported so far: the abstract
 base, ``Holonomic``, ``HolonomicWithRotation`` and ``KinematicBicycle``;
-the other models are ROADMAP Queue 1 item 6.
+the other models come with the debug scenarios (ROADMAP Queue 1, the
+debug scenarios).
 """
 from __future__ import annotations
 

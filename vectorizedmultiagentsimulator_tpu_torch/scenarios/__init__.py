@@ -3,49 +3,44 @@
 Scenarios are importable modules registered in :data:`_REGISTRY`;
 ``load(name)`` returns the module (exposing ``.Scenario``).  The registry
 holds the scenarios ported so far; the rest of the JAX package's library
-is ROADMAP Queue 1 item 7.
+is ROADMAP Queue 1, "The scenarios still to port".
 """
 from __future__ import annotations
 
 import importlib
 
+_PACKAGE = "vectorizedmultiagentsimulator_tpu_torch.scenarios"
 _REGISTRY = {
-    "asym_joint": (
-        "vectorizedmultiagentsimulator_tpu_torch.scenarios.debug.asym_joint"
-    ),
-    "balance": "vectorizedmultiagentsimulator_tpu_torch.scenarios.balance",
-    "ball_trajectory": (
-        "vectorizedmultiagentsimulator_tpu_torch.scenarios.ball_trajectory"
-    ),
-    "buzz_wire": "vectorizedmultiagentsimulator_tpu_torch.scenarios.buzz_wire",
-    "dispersion": "vectorizedmultiagentsimulator_tpu_torch.scenarios.dispersion",
-    "flocking": "vectorizedmultiagentsimulator_tpu_torch.scenarios.flocking",
-    "football": "vectorizedmultiagentsimulator_tpu_torch.scenarios.football",
-    "kinematic_bicycle": (
-        "vectorizedmultiagentsimulator_tpu_torch.scenarios.debug"
-        ".kinematic_bicycle"
-    ),
-    "joint_passage": (
-        "vectorizedmultiagentsimulator_tpu_torch.scenarios.joint_passage"
-    ),
-    "joint_passage_size": (
-        "vectorizedmultiagentsimulator_tpu_torch.scenarios.joint_passage_size"
-    ),
-    "navigation": "vectorizedmultiagentsimulator_tpu_torch.scenarios.navigation",
-    "road_traffic": (
-        "vectorizedmultiagentsimulator_tpu_torch.scenarios.road_traffic"
-    ),
-    "transport": "vectorizedmultiagentsimulator_tpu_torch.scenarios.transport",
-    "waterfall": (
-        "vectorizedmultiagentsimulator_tpu_torch.scenarios.debug.waterfall"
-    ),
-    "simple_speaker_listener": (
-        "vectorizedmultiagentsimulator_tpu_torch.scenarios.mpe"
-        ".simple_speaker_listener"
-    ),
-    "simple_spread": (
-        "vectorizedmultiagentsimulator_tpu_torch.scenarios.mpe.simple_spread"
-    ),
+    "asym_joint": f"{_PACKAGE}.debug.asym_joint",
+    "balance": f"{_PACKAGE}.balance",
+    "ball_passage": f"{_PACKAGE}.ball_passage",
+    "ball_trajectory": f"{_PACKAGE}.ball_trajectory",
+    "buzz_wire": f"{_PACKAGE}.buzz_wire",
+    "discovery": f"{_PACKAGE}.discovery",
+    "dispersion": f"{_PACKAGE}.dispersion",
+    "dropout": f"{_PACKAGE}.dropout",
+    "flocking": f"{_PACKAGE}.flocking",
+    "football": f"{_PACKAGE}.football",
+    "joint_passage": f"{_PACKAGE}.joint_passage",
+    "joint_passage_size": f"{_PACKAGE}.joint_passage_size",
+    "kinematic_bicycle": f"{_PACKAGE}.debug.kinematic_bicycle",
+    "navigation": f"{_PACKAGE}.navigation",
+    "passage": f"{_PACKAGE}.passage",
+    "reverse_transport": f"{_PACKAGE}.reverse_transport",
+    "road_traffic": f"{_PACKAGE}.road_traffic",
+    "sampling": f"{_PACKAGE}.sampling",
+    "simple": f"{_PACKAGE}.mpe.simple",
+    "simple_adversary": f"{_PACKAGE}.mpe.simple_adversary",
+    "simple_crypto": f"{_PACKAGE}.mpe.simple_crypto",
+    "simple_push": f"{_PACKAGE}.mpe.simple_push",
+    "simple_reference": f"{_PACKAGE}.mpe.simple_reference",
+    "simple_speaker_listener": f"{_PACKAGE}.mpe.simple_speaker_listener",
+    "simple_spread": f"{_PACKAGE}.mpe.simple_spread",
+    "simple_tag": f"{_PACKAGE}.mpe.simple_tag",
+    "simple_world_comm": f"{_PACKAGE}.mpe.simple_world_comm",
+    "transport": f"{_PACKAGE}.transport",
+    "waterfall": f"{_PACKAGE}.debug.waterfall",
+    "wheel": f"{_PACKAGE}.wheel",
 }
 
 

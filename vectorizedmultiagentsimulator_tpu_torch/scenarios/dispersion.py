@@ -86,9 +86,7 @@ class Scenario(BaseScenario):
                 landmark.how_many_on_food = torch.zeros(
                     (B,), dtype=torch.int32, device=dev
                 )
-                landmark.is_rendering = torch.ones(
-                    (B,), dtype=torch.bool, device=dev
-                )
+                landmark.reset_render()
             else:
                 landmark.eaten = TorchUtils.where_from_index(
                     env_index, torch.zeros_like(landmark.eaten), landmark.eaten

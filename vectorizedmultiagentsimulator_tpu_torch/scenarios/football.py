@@ -21,7 +21,7 @@ same state layout, so a JAX state carries across key for key:
   decision / precision noise when those strengths are not 1.
 
 Drawing (``extra_render``, the background) waits for the port's renderer
-(ROADMAP Queue 1 item 10).
+(ROADMAP Queue 1, wrappers and edges: render).
 """
 from typing import Dict, List
 

@@ -16,6 +16,9 @@ from vectorizedmultiagentsimulator_tpu_torch.core import (
     World,
 )
 from vectorizedmultiagentsimulator_tpu_torch.scenario import BaseScenario
+from vectorizedmultiagentsimulator_tpu_torch.scenarios.mpe import (
+    select_landmark,
+)
 from vectorizedmultiagentsimulator_tpu_torch.utils import ScenarioUtils
 
 _LANDMARK_COLORS = (
@@ -53,11 +56,7 @@ class Scenario(BaseScenario):
         return world
 
     def _goal_pos(self):
-        landmark_pos = torch.stack(
-            [l.state.pos for l in self.world.landmarks], dim=1
-        )  # [B, 3, 2]
-        index = self.goal_index[:, None, None].expand(-1, 1, 2)
-        return torch.gather(landmark_pos, 1, index)[:, 0]
+        return select_landmark(self.world.landmarks, self.goal_index)
 
     def reset_world_at(self, env_index=None):
         B = self.world.batch_dim

@@ -30,8 +30,8 @@ its last proposal when it gives up.  Give-ups are added to the device
 tensor ``world.spawn_give_ups``.  No reset and no step reads the device.
 
 Not ported yet: ``map_type='2'`` (the state-history ring and the
-initial-state buffer, ROADMAP Queue 1 item 7) and ``extra_render`` (the
-renderer, Queue 1 item 10).
+initial-state buffer, ROADMAP Queue 1, road_traffic map '2') and
+``extra_render`` (the renderer, Queue 1, wrappers and edges).
 """
 import math
 
@@ -254,8 +254,8 @@ class Scenario(BaseScenario):
         if self.map_type == "2":
             raise NotImplementedError(
                 "road_traffic map_type='2' (the state-history ring and the"
-                " initial-state buffer) is not ported yet: ROADMAP.md Queue 1"
-                " item 7"
+                " initial-state buffer) is not ported yet: ROADMAP.md Queue 1,"
+                " road_traffic map '2'"
             )
         self.n_nearing_agents_observed = kwargs.pop(
             "n_nearing_agents_observed", 2

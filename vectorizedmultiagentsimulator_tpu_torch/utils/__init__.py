@@ -366,6 +366,27 @@ class ScenarioUtils:
         return eff
 
     @staticmethod
+    def uniform_in_bounds(world, lo: float, hi: float,
+                          shape: Optional[Tuple[int, ...]] = None) -> Tensor:
+        """Uniform draws ``[B, dim_p]`` (or ``[B, *shape]``) in ``[lo, hi)``
+        from the world's generator: the reference's
+        ``torch.zeros(...).uniform_(lo, hi)`` spawn of the MPE scenarios."""
+        if shape is None:
+            shape = (world.dim_p,)
+        u = torch.rand((world.batch_dim,) + tuple(shape),
+                       generator=world.generator, device=world.device)
+        return lo + u * (hi - lo)
+
+    @staticmethod
+    def random_permutations(world, n: int) -> Tensor:
+        """``[B, n]`` int64: an independent uniform permutation of
+        ``range(n)`` per env, the ranks of uniform draws from the world's
+        generator (the JAX package's per-env ``jax.random.permutation``)."""
+        u = torch.rand((world.batch_dim, n), generator=world.generator,
+                       device=world.device)
+        return torch.argsort(u, dim=1)
+
+    @staticmethod
     def check_kwargs_consumed(kwargs: Dict, warn: bool = True):
         if len(kwargs) > 0:
             message = (
