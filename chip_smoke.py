@@ -80,7 +80,10 @@ Phases, one line each:
      (10 agents) from the same poses, across its entry and exit segments
      and after 10 steps; at 1024 envs, poses a margin's width from a chunk's
      box at each lane group and poses where a path passes near itself (no
-     closest index may move there)
+     closest index may move there); and road_traffic@10k on map '2' after
+     10 steps and a masked reset in which some envs replayed a recorded
+     state (their poses, path and point ids), where every output of the
+     three kernels must be the plain version's bits
      (torch_helpers.geometry_diff: continuous outputs within 1e-5 +
      1e-5|ref|, a moved index or flipped flag only at a near tie or
      touch); the pair matrix equal to its transpose; the neighbour kernel
@@ -96,8 +99,10 @@ Phases, one line each:
      transport, simple_spread, navigation, flocking, balance, football
      (5v5, the red team's scripted AI), joint_passage and buzz_wire (the
      physics kernel's joint branch) at 30k envs, road_traffic (20
-     vehicles, the CPM-Lab map) at 10k and discovery (5 agents, 7 targets)
-     at 10k, reset, 100 env.step calls under
+     vehicles, the CPM-Lab map) at 10k on map '1' and on map '2' (which
+     records the state 10 steps before each agent-agent collision and
+     starts 20 % of resets from a recorded one) and discovery (5 agents, 7
+     targets) at 10k, reset, 100 env.step calls under
      torch.cuda.set_sync_debug_mode("error") (any host sync fails the run);
      outputs finite and of the JAX package's shapes; exactly one physics
      launch per step, one ray-cast launch per LIDAR group and step (1 a
@@ -106,11 +111,18 @@ Phases, one line each:
      road kernel a step (road_traffic), each count set to 0 just before
      the run and read just after; discovery's covered targets counted on
      the card (some must respawn); then a masked reset of about half the
-     envs under the same check; road_traffic with map '3' (10 agents),
+     envs under the same check (on map '2' some of them must start from a
+     recorded state, counted); road_traffic with map '3' (10 agents),
      whose done() re-places agents every step, likewise (two
-     agent-geometry launches a step).  The other scenarios of the slice
+     agent-geometry launches a step).  The other scenarios
      (OTHER_PATHS: the MPE suite, sampling, wheel, passage, ball_passage,
-     reverse_transport, dropout) likewise over 10 steps at 1024 envs.
+     reverse_transport, dropout; give_way, multi_give_way, wind_flocking
+     and the debug circle_trajectory, line_trajectory, goal, vel_control,
+     diff_drive, drone, het_mass and pollock, the last two on the plain
+     physics as the JAX package routes them, pollock with its 15 LIDARs
+     measured one ray cast a ray) likewise over 10 steps at 1024 envs;
+     pollock's ray-by-ray LIDAR measure against the grouped one, to the
+     bit.
      Then each CUDA env against the CPU env (plain path) from one state
      over 10 steps at 64 envs, football's two envs fed the same planner
      samples, road_traffic's without observation noise, discovery's
@@ -129,13 +141,14 @@ Phases, one line each:
      50 steps with the kernels forced off (the world on its plain physics,
      the ray cast on cast_rays_plain, the planner on best_positions_plain,
      the road geometry on geometry_plain and neighbor_obs_plain), in turns
-     (kernel, plain, plain, kernel), timed with CUDA events; then
+     (kernel, plain, plain, kernel), timed with CUDA events (map '2':
+     the kernels only, NO_PLAIN_WINDOWS); then
      training env-steps/s of simple_spread@4096,
      transport@4096 and transport@16384 with the PPO kernel and with the
      autograd update, in turns, and the rollout and update time of an
      iteration;
   5. a torch.profiler trace of 20 steady steps of each main path with
-     the kernels on and 10 with them off (and of discovery with
+     the kernels on and 10 with them off (but map '2') (and of discovery with
      targets_respawn=False, kernels on: its step without the respawn):
      wall ms a step (CUDA events, without the profiler), device busy ms a
      step, idle share, device kernels a step,
@@ -143,6 +156,7 @@ Phases, one line each:
      host's enqueue time of a rollout step split into env.step, the masked
      reset and the rest, and one training iteration under the profiler;
   6. the rollout as a CUDA graph (parallel/rollout.py): on every main path
+     (map '2' from a state after a reset that replayed recorded states)
      and every scenario of OTHER_PATHS at 1024 envs, and transport at 30k,
      two 10-step graph rollouts in a row (capture and replay, then a
      replay from the graph's own final
@@ -204,6 +218,10 @@ PROFILE_STEPS = 20
 # must stay well inside its time limit as the slices add paths.
 PLAIN_STEPS = 50
 PLAIN_PROFILE_STEPS = 10
+# The main paths whose plain windows phases 4 and 5 leave out: map '2''s
+# plain step is map '1''s with the buffers' writes (about 30 small kernels
+# a step), and its windows cost about 40 s of the run.
+NO_PLAIN_WINDOWS = ("road_traffic_map2",)
 # Physics kernel vs plain, one step from identical inputs: the two sum
 # each entity's fp32 forces in another order, and the card's libm is not
 # the CPU's; contact penalties (collision_force 100 over a 1e-3 margin)
@@ -250,6 +268,10 @@ MAIN_PATHS = [
     ("buzz_wire", N_ENVS, 2, 6, 0, 0, (0, 0, 0)),
     ("road_traffic", 10_000, 20, 32, 0, 0, (1, 1, 1)),
     ("discovery", 10_000, 5, 19, 1, 0, (0, 0, 0)),
+    # road_traffic on map '2' (SCENARIO_OF, PATH_KWARGS): the way its
+    # users train, recording the state 10 steps before each agent-agent
+    # collision and starting 20 % of resets from a recorded state.
+    ("road_traffic_map2", 10_000, 20, 32, 0, 0, (1, 1, 1)),
 ]
 # The other scenarios of the slice (the MPE suite, sampling, wheel,
 # passage, ball_passage, reverse_transport, dropout), in MAIN_PATHS' form
@@ -264,15 +286,29 @@ OTHER_PATHS = [
         ("simple_push", 0), ("simple_reference", 0), ("simple_tag", 0),
         ("simple_world_comm", 0), ("sampling", 1), ("wheel", 0),
         ("passage", 0), ("ball_passage", 0), ("reverse_transport", 0),
-        ("dropout", 0))
+        ("dropout", 0),
+        # The velocity-controlled scenarios, the debug dynamics
+        # showcases, and pollock with a 16-ray LIDAR on each of its 15
+        # agents measured one ray cast a ray (PATH_KWARGS).
+        ("give_way", 0), ("multi_give_way", 0), ("wind_flocking", 0),
+        ("circle_trajectory", 0), ("line_trajectory", 0), ("goal", 0),
+        ("vel_control", 0), ("diff_drive", 0), ("drone", 0),
+        ("het_mass", 0), ("pollock", 15 * 16))
 ]
+# The paths that step through the plain physics, as the JAX package's guard
+# routes them: het_mass's per-env mass, pollock's weighted pair cost x
+# substeps over the guard (ops/physics_cuda.step_supported).
+PLAIN_ROUTE = ("het_mass", "pollock")
 # Phase 6: the graph rollout against the eager loop on every main path at
 # GRAPH_ENVS envs over GRAPH_STEPS steps (and transport at N_ENVS), twice
 # in a row; then each path's eager and graph rates at its own envs.
 GRAPH_ENVS = 1024
 GRAPH_STEPS = 10
-# The graph rollouts that time OTHER_PATHS at N_ENVS.
+# The graph rollouts that time OTHER_PATHS at N_ENVS; pollock's plain
+# physics over 45 entities takes about 0.75 s a step at 30k (its capture of
+# 25 steps took 23.7 s, each replay 19 s), so it rolls POLLOCK_STEPS.
 OTHER_STEPS = 25
+POLLOCK_STEPS = 5
 # The joint worlds (joint_force 900 over 10-15 substeps): an ulp grows
 # about 2x a substep, so from inputs far from rest (random, or after 10
 # random steps) the kernel is held to torch_helpers.physics_diff's float64
@@ -288,7 +324,11 @@ PATH_ENVS = {path[0]: path[1] for path in MAIN_PATHS + OTHER_PATHS}
 ROAD_MAP3 = dict(map_type="3", n_agents=10)
 # A main path's make_env kwargs beyond the defaults: football 5v5, the
 # reference's benchmark configuration (BASELINE.md), the red team scripted.
-PATH_KWARGS = {"football": dict(n_blue_agents=5, n_red_agents=5)}
+PATH_KWARGS = {"football": dict(n_blue_agents=5, n_red_agents=5),
+               "road_traffic_map2": dict(map_type="2"),
+               "pollock": dict(lidar=True, vectorized_lidar=False)}
+# The scenario of a path whose name is not a scenario's.
+SCENARIO_OF = {"road_traffic_map2": "road_traffic"}
 # Phase 2's random physics inputs put every entity in [-spread, spread]^2:
 # 0.3 by default; football's 23 entities (10 walls and goal lines) at 0.3
 # press each sphere against up to ten lines at once, whose opposed contact
@@ -300,6 +340,7 @@ PATH_SPREAD = {"football": 1.0}
 # targets leave the arena (targets_respawn=False) instead of respawning at
 # places each generator draws for itself.
 CPU_COMPARE_KWARGS = {"road_traffic": dict(is_add_noise=False),
+                      "road_traffic_map2": dict(is_add_noise=False),
                       "discovery": dict(targets_respawn=False)}
 # cuda_vs_cpu's tolerance: (base, growth a step, steps compared, share of
 # envs that may diverge), tests/test_scenario_parity.py's _DEFAULT, or its
@@ -311,7 +352,7 @@ CPU_COMPARE_TOL = {"buzz_wire": (3e-3, 2.2, 4, 0.5),
 # episode): an ulp of the card's cos/sin against the CPU's can flip a
 # touching crossing, so, as for a scripted AI's near ties, an env may leave
 # cuda_vs_cpu's comparison (counted and printed; at most 1/8 of them).
-DISCRETE_FLAGS = ("road_traffic",)
+DISCRETE_FLAGS = ("road_traffic", "road_traffic_map2")
 # The H100 SXM's published rates (NVIDIA's data sheet): device
 # memory and fp32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -404,7 +445,8 @@ def make_path_env(name, num_envs=None, device="cuda", seed=0, **kwargs):
     PATH_KWARGS and ``kwargs``."""
     import vectorizedmultiagentsimulator_tpu_torch as vmt
 
-    return vmt.make_env(name, num_envs=num_envs or PATH_ENVS[name],
+    return vmt.make_env(SCENARIO_OF.get(name, name),
+                        num_envs=num_envs or PATH_ENVS[name],
                         device=device, seed=seed,
                         **PATH_KWARGS.get(name, {}), **kwargs)
 
@@ -711,7 +753,9 @@ def main_path(name, envs, agents, obs_dim, casts_per_step, plans_per_step,
     label = label or f"{name}@{envs}"
     env = make_path_env(name, envs, **kwargs)
     env.reset()
-    assert env.world._use_kernel, f"{name} does not step through the kernel"
+    kernel_route = name not in PLAIN_ROUTE
+    assert env.world._use_kernel == kernel_route, (
+        f"{name}: the physics route is not the JAX package's")
     g = torch.Generator(device="cuda").manual_seed(1)
     sizes = [env.get_agent_action_size(a) for a in env.agents]
     give_ups_before = env.world.spawn_give_ups.clone()
@@ -749,7 +793,8 @@ def main_path(name, envs, agents, obs_dim, casts_per_step, plans_per_step,
     s = env.world.state
     for f in ("pos", "vel", "rot", "ang_vel"):
         assert bool(torch.isfinite(getattr(s, f)).all()), f
-    expected = (n_steps, n_steps * casts_per_step, n_steps * plans_per_step,
+    expected = (n_steps if kernel_route else 0, n_steps * casts_per_step,
+                n_steps * plans_per_step,
                 tuple(n_steps * r for r in road_per_step))
     if (steps, casts, plans, road) != expected:
         raise AssertionError(
@@ -761,7 +806,8 @@ def main_path(name, envs, agents, obs_dim, casts_per_step, plans_per_step,
         raise AssertionError(f"{label}: no target respawned in {n_steps}"
                              f" steps")
     # A masked reset (the trainer's, of the envs a mask names) under the
-    # same check.
+    # same check; on map '2' some reset envs must replay a recorded state.
+    recorded = recorded_rows(env)
     mask = torch.rand((envs,), generator=g, device="cuda") > 0.5
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -770,8 +816,17 @@ def main_path(name, envs, agents, obs_dim, casts_per_step, plans_per_step,
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert all(bool(torch.isfinite(o).all()) for o in reset_obs)
-    log(f"[3] {label}: physics lanes an env"
-        f" {env.world._kernel_tables.structs[1].lanes}; {n_steps} steps, no"
+    replays = ""
+    if recorded is not None:
+        n_replayed = int(replayed_envs(env, mask, recorded).sum())
+        replays = (f", {n_replayed} of them from a recorded state (envs with"
+                   f" a recorded state {int((recorded[1] > 0).sum())})")
+        if not n_replayed:
+            raise AssertionError(f"{label}: no reset env replayed a recorded"
+                                 f" state")
+    lanes = (env.world._kernel_tables.structs[1].lanes if kernel_route
+             else "none (the plain route)")
+    log(f"[3] {label}: physics lanes an env {lanes}; {n_steps} steps, no"
         f" host sync, obs {len(obs)}x[{envs}, "
         f"{'/'.join(sorted({str(o.shape[1]) for o in obs}))}] finite,"
         f" physics launches {steps},"
@@ -780,8 +835,69 @@ def main_path(name, envs, agents, obs_dim, casts_per_step, plans_per_step,
         f" last step {int(dones.sum())}, placement give-ups"
         f" {int(env.world.spawn_give_ups - give_ups_before)}"
         + (f", targets respawned {int(respawns)}" if respawning else "")
-        + f"; masked reset of {int(mask.sum())} envs, no host sync")
+        + f"; masked reset of {int(mask.sum())} envs{replays}, no host sync")
     return steps, casts, plans, road
+
+
+def recorded_rows(env):
+    """A map '2' road_traffic env's initial-state buffer and its lengths
+    (copies), or None for any other env."""
+    if getattr(env.scenario, "map_type", None) != "2":
+        return None
+    return env.scenario.isb_buf.clone(), env.scenario.isb_len.clone()
+
+
+def replayed_envs(env, mask, recorded):
+    """``[B]`` bool: the envs of ``mask`` whose agents' positions are, all
+    of them, one of the env's rows of ``recorded`` (``recorded_rows``
+    before the reset): the envs that started from a recorded state."""
+    import torch
+
+    rows, lengths = recorded
+    pos = env.world.state.pos  # road_traffic: the agents only
+    same = (rows[..., :2] == pos[:, None]).all(-1).all(-1)  # [B, S]
+    valid = (torch.arange(rows.shape[1], device=rows.device)[None]
+             < lengths[:, None])
+    return mask & (same & valid).any(-1)
+
+
+def replayed_state(env, steps=10, seed=5):
+    """``env`` (road_traffic on map '2') after ``steps`` random steps and a
+    masked reset of about half its envs; returns how many reset envs
+    started from a recorded state."""
+    import torch
+
+    for a in random_actions(env, steps, seed=seed):
+        env.step(a)
+    recorded = recorded_rows(env)
+    mask = torch.rand((env.num_envs,), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(
+                          seed)) > 0.5
+    env.reset_at(mask)
+    return int(replayed_envs(env, mask, recorded).sum())
+
+
+def lidar_forms_equal(n_envs=1024, steps=3):
+    """pollock with its LIDARs on the card: ``Lidar.measure(vectorized=
+    False)`` (one ray-cast launch a ray) equal to the grouped measure (one
+    launch for the 15 LIDARs) to the bit, after ``steps`` steps."""
+    import torch
+
+    env = make_path_env("pollock", n_envs)
+    for a in random_actions(env, steps, seed=6):
+        env.step(a)
+    lidars = [a.sensors[0] for a in env.world.agents]
+    with torch.no_grad():
+        grouped = [x.measure() for x in lidars]
+        single = [x.measure(vectorized=False) for x in lidars]
+    same = all(torch.equal(a, b) for a, b in zip(grouped, single))
+    hits = sum(int((a < 0.5).sum()) for a in grouped)
+    log(f"[3] pollock@{n_envs} after {steps} steps: {len(lidars)} LIDARs of"
+        f" 16 rays, one ray cast a ray against one launch for all, equal to"
+        f" the bit: {same} ({hits} rays hit)")
+    if not same or not hits:
+        raise AssertionError("pollock: the ray-by-ray LIDAR measure differs"
+                             " from the grouped one (or no ray hit)")
 
 
 def cuda_vs_cpu(name, n_envs=64, n_steps=10):
@@ -1949,6 +2065,23 @@ def road_phase_2(errs):
         if not tag:
             main_inputs = (tables, pos, rot, pid, nargs)
         del env
+    # Map '2' after a reset that replayed recorded states: the replayed
+    # poses, path and point ids feed the kernels, whose every output must be
+    # the plain version's bits.
+    env = make_path_env("road_traffic_map2", envs)
+    n_replayed = replayed_state(env)
+    label = (f"road_traffic@{envs} map '2' after a reset ({n_replayed} envs"
+             f" replayed a recorded state)")
+    (tables, pos, rot, pid), nargs = road_inputs(env)
+    replay_errs = geometry_vs_plain(tables, pos, rot, pid, label)
+    replay_errs += (neighbors_vs_plain(nargs, label),)
+    errs["geometry"].append(replay_errs[:2])
+    errs["neighbor_obs"].append(replay_errs[2])
+    if not n_replayed or any(replay_errs):
+        raise AssertionError(f"{label}: no replay, or the road kernels are"
+                             f" not bit-equal to their plain versions"
+                             f" ({replay_errs})")
+    del env
     # Random inputs at A = 6 to 64 (past 32 a lane takes two agents), and
     # the same with every other env's dn on a grid of 0.5, so that rounds
     # meet ties.
@@ -2057,6 +2190,9 @@ def graph_vs_eager(path, envs, steps=GRAPH_STEPS, trace=True):
     env = make_path_env(name, envs)
     for a in random_actions(env, 3, seed=1):
         env.step(a)
+    if recorded_rows(env) is not None:
+        # Map '2': the rollouts start after a reset that replayed states.
+        label += f" ({replayed_state(env)} envs replayed a recorded state)"
     w = env.world
     start, world_rng = _clone_state(w.state), w.generator.get_state()
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -2103,7 +2239,8 @@ def graph_vs_eager(path, envs, steps=GRAPH_STEPS, trace=True):
             unequal.append(f"call {k} world generator state")
         if not torch.equal(gp, ep):
             unequal.append(f"call {k} policy generator state")
-    expected = {"physics_step": 1, "raycast": casts, "football_policy": plans,
+    expected = {"physics_step": int(name not in PLAIN_ROUTE), "raycast": casts,
+                "football_policy": plans,
                 "agent_geometry": road[0], "pair_collisions": road[1],
                 "neighbor_obs": road[2]}
     expected = {k: n for k, n in expected.items() if n}
@@ -2575,6 +2712,7 @@ def main():
         launches["physics_step"] += steps
         launches["raycast"] += cast_count
     plain_route_joints()
+    lidar_forms_equal()
     for name, *_ in MAIN_PATHS + OTHER_PATHS:
         cuda_vs_cpu(name)
     for path in TRAIN_PATHS:
@@ -2590,13 +2728,15 @@ def main():
         env = make_path_env(name)
         actions = random_actions(env, N_STEPS, seed=7)
         rates = {True: [], False: []}
-        for on in (True, False, False, True):
+        turns = ((True, True) if name in NO_PLAIN_WINDOWS
+                 else (True, False, False, True))
+        for on in turns:
             rates[on].append(rollout_rate(
                 env, actions if on else actions[:PLAIN_STEPS], on))
         log(f"[4] {name}@{env.num_envs} rollout env-steps/s: kernels"
             f" ({N_STEPS} steps) {rates[True][0]:.6g} {rates[True][1]:.6g},"
-            f" plain ({PLAIN_STEPS} steps) {rates[False][0]:.6g}"
-            f" {rates[False][1]:.6g}")
+            f" plain ({PLAIN_STEPS} steps) "
+            + " ".join(f"{r:.6g}" for r in rates[False]))
         del env, actions
     for name, num_envs in TRAIN_CELLS:
         train_rates(name, num_envs)
@@ -2610,7 +2750,8 @@ def main():
             ("discovery", dict(targets_respawn=False))]:
         env = make_path_env(name, **kwargs)
         actions = random_actions(env, PROFILE_STEPS, seed=8)
-        for on in (True, False) if not kwargs else (True,):
+        plain = not kwargs and name not in NO_PLAIN_WINDOWS
+        for on in (True, False) if plain else (True,):
             wall, busy, idle, n_kernels, named = profile_steps(
                 env, actions if on else actions[:PLAIN_PROFILE_STEPS], on)
             log(f"[5] {name}@{env.num_envs}"
@@ -2643,7 +2784,8 @@ def main():
     for name, *_ in MAIN_PATHS:
         graph_rates(name, PATH_ENVS[name])
     for name, *_ in OTHER_PATHS:
-        graph_rate(name, PATH_ENVS[name], OTHER_STEPS)
+        graph_rate(name, PATH_ENVS[name],
+                   POLLOCK_STEPS if name == "pollock" else OTHER_STEPS)
     port_bench()
     phase_time(6)
 

@@ -302,7 +302,15 @@ GRAPH_PATHS = [
     (name, {}, 0, 0, 0) for name in (
         "simple", "simple_adversary", "simple_crypto", "simple_push",
         "simple_reference", "simple_tag", "simple_world_comm", "wheel",
-        "passage", "ball_passage", "reverse_transport", "dropout")]
+        "passage", "ball_passage", "reverse_transport", "dropout",
+        "give_way", "multi_give_way", "wind_flocking", "circle_trajectory",
+        "line_trajectory", "goal", "vel_control", "diff_drive", "drone",
+        "het_mass", "pollock")] + [
+    # road_traffic on map '2' (its history ring and initial-state buffer
+    # written in place by the captured steps)
+    ("road_traffic", dict(map_type="2"), 0, 0, 1),
+    # pollock's 15 LIDARs measured one ray cast a ray (16 rays each)
+    ("pollock", dict(lidar=True, vectorized_lidar=False), 15 * 16, 0, 0)]
 
 
 @pytest.mark.parametrize("scenario,kwargs,casts,plans,road", GRAPH_PATHS)
@@ -313,7 +321,8 @@ def test_graph_rollout_matches_eager(cuda, scenario, kwargs, casts, plans,
     replay, then a replay from the graph's own final state), every output,
     the final state and both generators' states equal to the bit.  Each
     replay runs (the captured graph's kernel nodes, by name) one physics
-    kernel a step, one ray cast a LIDAR group, one planner kernel a
+    kernel a step (none on het_mass's and pollock's plain route), one ray
+    cast a LIDAR group, one planner kernel a
     scripted team and one kernel of each road kernel; the wrappers' host
     counts hold the capture's launches (its warm-up step and its steps)
     and no replay's."""
@@ -362,7 +371,8 @@ def test_graph_rollout_matches_eager(cuda, scenario, kwargs, casts, plans,
         assert all(torch.equal(x, y) for x, y in zip(gl, el))
         assert all(torch.equal(x, es[k]) for k, x in gs.items())
         assert torch.equal(gr, er) and torch.equal(gp, ep)
-    per_step = {"physics_step": 1, "raycast": casts, "football_policy": plans}
+    per_step = {"physics_step": int(w._use_kernel), "raycast": casts,
+                "football_policy": plans}
     per_step.update(dict.fromkeys(road_geometry_cuda.KERNELS, road))
     per_step = {k: n for k, n in per_step.items() if n}
     assert replayed == {k: n * n_steps for k, n in per_step.items()}
@@ -554,7 +564,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 @pytest.mark.parametrize("scenario", [
     "transport", "simple_spread", "navigation", "flocking", "balance",
     "dispersion", "simple_speaker_listener", "football", "road_traffic",
-    "discovery", "sampling"])
+    "discovery", "sampling", "give_way", "wind_flocking", "drone",
+    "het_mass"])
 def test_masked_reset_no_sync(cuda, scenario):
     """``reset_at`` with a bool mask (the trainer's reset in every step)
     reads nothing from the device and leaves the other envs alone."""
@@ -868,7 +879,8 @@ def test_road_autograd_is_the_plain_versions(cuda):
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kwargs,agent_geometry", [({}, 1), (ROAD_MAP3, 2)])
+@pytest.mark.parametrize("kwargs,agent_geometry", [
+    ({}, 1), (ROAD_MAP3, 2), (dict(map_type="2"), 1)])
 def test_road_traffic_launches_no_sync(cuda, kwargs, agent_geometry):
     """road_traffic on the card: a physics launch, one of each road kernel
     a step (map '3' re-places agents in done(): a second agent-geometry

@@ -765,8 +765,12 @@ def test_map_type_3_paths_within_group():
     assert ((sc.path_id.numpy() >= lo) & (sc.path_id.numpy() < lo + size)).all()
     with pytest.raises(ValueError):
         _env(2, map_type="3", n_agents=11)
-    with pytest.raises(NotImplementedError, match="Queue 1, road_traffic map '2'"):
-        _env(2, map_type="2")
+    # Map '2' draws from the whole map, as map '1' does: one group of every
+    # path.
+    env = _env(2, map_type="2")
+    sc = env.scenario
+    assert list(sc.group_sizes) == [sc.n_paths] == [_env(2).scenario.n_paths]
+    assert (sc.path_id.numpy() < sc.n_paths).all()
 
 
 def test_testing_mode_never_done_and_replaces_colliders():

@@ -338,8 +338,9 @@ def replay_golden(make_env, path):
     the recorded t=0 state injected, the recorded actions stepped, the
     states, and the observations and rewards where the file holds them
     (rewards from t = 1), held at its default tolerance with its
-    divergence accounting.  ``make_env(scenario, num_envs, **kwargs)``
-    makes the port's env."""
+    divergence accounting; recorded per-entity masses (``entity_mass``)
+    are injected as per-env mass.  ``make_env(scenario, num_envs,
+    **kwargs)`` makes the port's env."""
     import ast
 
     data = np.load(path, allow_pickle=True)
@@ -353,6 +354,10 @@ def replay_golden(make_env, path):
     names = [str(n) for n in data["entity_names"]]
     mine = {e.name: e for e in env.world.entities}
     assert set(names) == set(mine), (sorted(names), sorted(mine))
+    if "entity_mass" in data:
+        # The reference's reset-sampled masses (het_mass), as per-env mass.
+        for i, n in enumerate(names):
+            mine[n].mass = torch.full((B, 1), float(data["entity_mass"][i]))
     for i, n in enumerate(names):
         e = mine[n]
         e.set_pos(torch.as_tensor(data["pos"][0, i]))

@@ -1092,10 +1092,10 @@ class World:
         entity_filter: Callable[[Entity], bool] = lambda _: False,
     ) -> Tensor:
         """angles [B] -> distances [B] (the single-angle API,
-        core.py:1628-1660, on the vectorized cast)."""
-        return self.cast_rays(entity, angles[:, None], max_range, entity_filter)[
-            :, 0
-        ]
+        core.py:1628-1660, on the vectorized cast); ``angles`` may be a
+        strided view, such as one column of a LIDAR's ``[B, R]``."""
+        return self.cast_rays(entity, angles[:, None].contiguous(), max_range,
+                              entity_filter)[:, 0]
 
     # ------------------------------------------------------------------ #
     # Distance / overlap queries (core.py:1788-1969)

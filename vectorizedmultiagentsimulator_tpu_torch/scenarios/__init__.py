@@ -2,8 +2,8 @@
 
 Scenarios are importable modules registered in :data:`_REGISTRY`;
 ``load(name)`` returns the module (exposing ``.Scenario``).  The registry
-holds the scenarios ported so far; the rest of the JAX package's library
-is ROADMAP Queue 1, "The scenarios still to port".
+holds the JAX package's 41 scenario names: 21 main scenarios, 11 debug
+ones and 9 from MPE.
 """
 from __future__ import annotations
 
@@ -16,16 +16,25 @@ _REGISTRY = {
     "ball_passage": f"{_PACKAGE}.ball_passage",
     "ball_trajectory": f"{_PACKAGE}.ball_trajectory",
     "buzz_wire": f"{_PACKAGE}.buzz_wire",
+    "circle_trajectory": f"{_PACKAGE}.debug.circle_trajectory",
+    "diff_drive": f"{_PACKAGE}.debug.diff_drive",
     "discovery": f"{_PACKAGE}.discovery",
     "dispersion": f"{_PACKAGE}.dispersion",
+    "drone": f"{_PACKAGE}.debug.drone",
     "dropout": f"{_PACKAGE}.dropout",
     "flocking": f"{_PACKAGE}.flocking",
     "football": f"{_PACKAGE}.football",
+    "give_way": f"{_PACKAGE}.give_way",
+    "goal": f"{_PACKAGE}.debug.goal",
+    "het_mass": f"{_PACKAGE}.debug.het_mass",
     "joint_passage": f"{_PACKAGE}.joint_passage",
     "joint_passage_size": f"{_PACKAGE}.joint_passage_size",
     "kinematic_bicycle": f"{_PACKAGE}.debug.kinematic_bicycle",
+    "line_trajectory": f"{_PACKAGE}.debug.line_trajectory",
+    "multi_give_way": f"{_PACKAGE}.multi_give_way",
     "navigation": f"{_PACKAGE}.navigation",
     "passage": f"{_PACKAGE}.passage",
+    "pollock": f"{_PACKAGE}.debug.pollock",
     "reverse_transport": f"{_PACKAGE}.reverse_transport",
     "road_traffic": f"{_PACKAGE}.road_traffic",
     "sampling": f"{_PACKAGE}.sampling",
@@ -39,8 +48,10 @@ _REGISTRY = {
     "simple_tag": f"{_PACKAGE}.mpe.simple_tag",
     "simple_world_comm": f"{_PACKAGE}.mpe.simple_world_comm",
     "transport": f"{_PACKAGE}.transport",
+    "vel_control": f"{_PACKAGE}.debug.vel_control",
     "waterfall": f"{_PACKAGE}.debug.waterfall",
     "wheel": f"{_PACKAGE}.wheel",
+    "wind_flocking": f"{_PACKAGE}.wind_flocking",
 }
 
 

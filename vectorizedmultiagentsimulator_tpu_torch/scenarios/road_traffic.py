@@ -4,9 +4,23 @@ CAV benchmark on the CPM-Lab HD map: up to 20 kinematic-bicycle vehicles
 follow 40 long-term reference-path loops with ego-view partial
 observations, progress and velocity rewards, and boundary and agent
 collision penalties.  The PyTorch counterpart of the JAX package's
-``scenarios/road_traffic.py`` for ``map_type`` '1' (the whole map) and '3'
-(the intersection and merge sub-maps), ``is_testing_mode`` and per-agent
+``scenarios/road_traffic.py`` for ``map_type`` '1' (the whole map), '2'
+(the whole map, with recorded challenging initial states) and '3' (the
+intersection and merge sub-maps), ``is_testing_mode`` and per-agent
 resets.
+
+Map '2' keeps, per env, a ring of the last ``n_steps_before_recording``
+states (``state_hist``, pushed after the last agent's reward) and an
+initial-state buffer of ``initial_state_buffer_size`` rows (``isb_buf``):
+``done()`` records the state from ``n_steps_stored`` steps before an
+agent-agent collision there, and a reset starts an env from one of its
+recorded rows with probability ``probability_use_recording``.  Rows are
+``[pos_x, pos_y, rot, vel_x, vel_y, scenario_id, path_id, point_id]`` per
+agent (the reference's row format).  Both buffers are written in place
+(indexed writes into the same storage), so a captured step neither
+reallocates nor re-reads them on the host, and they hold detached values:
+a replayed state starts an episode, with no gradient back into the episode
+it was recorded in.
 
 The per-step path geometry runs in three hand-written CUDA kernels
 (``ops/road_geometry_cuda.py``): ``reward()`` calls ``fused_geometry``
@@ -29,9 +43,8 @@ and keeps the first that is clear, or the last, as the JAX package keeps
 its last proposal when it gives up.  Give-ups are added to the device
 tensor ``world.spawn_give_ups``.  No reset and no step reads the device.
 
-Not ported yet: ``map_type='2'`` (the state-history ring and the
-initial-state buffer, ROADMAP Queue 1, road_traffic map '2') and
-``extra_render`` (the renderer, Queue 1, wrappers and edges).
+Not ported yet: ``extra_render`` (the renderer, ROADMAP Queue 1, wrappers
+and edges).
 """
 import math
 
@@ -148,6 +161,7 @@ class Scenario(BaseScenario):
         self._group_sizes = torch.as_tensor(self.group_sizes, device=dev)
         self._normalizer_pos_world = torch.as_tensor(
             self.normalizer_pos_world, device=dev)
+        self._env_rows = torch.arange(batch_dim, device=dev)
         # The sub-maps an env can draw (map '3': those of nonzero
         # probability).
         groups = [
@@ -251,12 +265,6 @@ class Scenario(BaseScenario):
         assert self.map_type in ("1", "2", "3"), (
             f"map_type must be one of '1'/'2'/'3', got {self.map_type!r}"
         )
-        if self.map_type == "2":
-            raise NotImplementedError(
-                "road_traffic map_type='2' (the state-history ring and the"
-                " initial-state buffer) is not ported yet: ROADMAP.md Queue 1,"
-                " road_traffic map '2'"
-            )
         self.n_nearing_agents_observed = kwargs.pop(
             "n_nearing_agents_observed", 2
         )
@@ -340,7 +348,7 @@ class Scenario(BaseScenario):
             paths_merge_in,
             paths_merge_out,
         ) = rtm.get_reference_paths(self.map_data)
-        if self.map_type == "1":
+        if self.map_type in ("1", "2"):
             # scenario_id 0 = the whole map (road_traffic.py:279-292)
             path_groups = [paths_all]
         else:
@@ -412,6 +420,82 @@ class Scenario(BaseScenario):
         self.reset_agent_min_distance = (
             math.sqrt((self.l_f + self.l_r) ** 2 + self.agent_width**2) * 1.2
         )
+
+    # ------------------------------------------------------------------ #
+    # Map '2': the state-history ring and the initial-state buffer (the
+    # reference's StateBuffer / InitialStateBuffer, road_traffic.py:
+    # 3003-3086, per env and batch-leading), written in place
+    # ------------------------------------------------------------------ #
+    def _current_snapshot(self):
+        """``[B, A, 8]`` rows of ``[pos_x, pos_y, rot, vel_x, vel_y,
+        scenario_id, path_id, point_id]`` (road_traffic.py:862-869),
+        detached."""
+        s = self.world.state
+        sid = self.scenario_id[:, None, None].expand(-1, self.n_agents, 1)
+        return torch.cat([
+            s.pos, s.rot, s.vel, sid.to(torch.float32),
+            self.path_id[..., None].to(torch.float32),
+            self.point_id[..., None].to(torch.float32),
+        ], dim=-1).detach()
+
+    def _hist_push(self, snap):
+        """Write ``snap`` at each env's ring pointer and advance it."""
+        H = self.n_steps_before_recording
+        self.state_hist[self._env_rows, self.hist_ptr.long()] = snap
+        self.hist_ptr = (self.hist_ptr + 1) % H
+        self.hist_len = torch.clamp_max(self.hist_len + 1, H)
+
+    def _hist_latest(self, n: int):
+        """Per env the reference's ``CircularBuffer.get_latest(n)``
+        (road_traffic.py:3028-3042): the state from ``n`` pushes ago, or
+        the oldest entry where fewer than ``n`` pushes happened."""
+        H = self.n_steps_before_recording
+        idx = torch.where(n > self.hist_len, torch.zeros_like(self.hist_ptr),
+                          (self.hist_ptr - n) % H)
+        return self.state_hist[self._env_rows, idx.long()]
+
+    def _hist_reset(self, env_mask):
+        """The reference's ``state_buffer.reset()`` and ``add(current)``
+        (road_traffic.py:1023-1035) in the envs of ``env_mask``: the ring
+        zeroed with the current state in its first slot."""
+        snap = self._current_snapshot()
+        hist = self.state_hist
+        hist.masked_fill_(env_mask[:, None, None, None], 0.0)
+        hist[:, 0] = torch.where(env_mask[:, None, None], snap, hist[:, 0])
+        one = torch.ones_like(self.hist_ptr)
+        self.hist_ptr = torch.where(env_mask, one, self.hist_ptr)
+        self.hist_len = torch.where(env_mask, one, self.hist_len)
+
+    def _isb_append(self, mask, snap):
+        """Append ``snap`` to the initial-state buffer of the envs of
+        ``mask``: one row at each env's pointer, rewritten with its own
+        value elsewhere."""
+        S = self.initial_state_buffer_size
+        rows, ptr = self._env_rows, self.isb_ptr.long()
+        self.isb_buf[rows, ptr] = torch.where(mask[:, None, None], snap,
+                                              self.isb_buf[rows, ptr])
+        self.isb_ptr = torch.where(mask, (self.isb_ptr + 1) % S, self.isb_ptr)
+        self.isb_len = torch.where(
+            mask, torch.clamp_max(self.isb_len + 1, S), self.isb_len)
+
+    def _recorded_starts(self):
+        """A reset's replay draw (road_traffic.py:705-720): per env whether
+        it starts from a recorded row (``probability_use_recording``, where
+        the env has one) and that row, ``[B, A, 8]``, uniform over the
+        env's rows."""
+        B, dev = self.world.batch_dim, self.world.device
+        g = self.world.generator
+        use = ((torch.rand((B,), generator=g, device=dev)
+                < self.probability_use_recording) & (self.isb_len >= 1))
+        # jax.random.randint(k2, (B,), 0, max(isb_len, 1)) (:714-716):
+        # torch.randint takes no per-env bound, so rec_idx =
+        # min(floor(u * n), n - 1) with u uniform in [0, 1) and
+        # n = max(isb_len, 1).
+        n = torch.clamp_min(self.isb_len, 1)
+        u = torch.rand((B,), generator=g, device=dev)
+        rec_idx = torch.minimum((u * n.to(torch.float32)).long(),
+                                (n - 1).long())
+        return use, self.isb_buf[self._env_rows, rec_idx]
 
     # ------------------------------------------------------------------ #
     # Placement
@@ -516,6 +600,18 @@ class Scenario(BaseScenario):
                                                  device=dev)
                 self.collide_exit = torch.zeros((B, A), dtype=torch.bool,
                                                 device=dev)
+            if self.map_type == "2":
+                H = self.n_steps_before_recording
+                S = self.initial_state_buffer_size
+                f32, i32 = torch.float32, torch.int32
+                self.state_hist = torch.zeros((B, H, A, 8), dtype=f32,
+                                              device=dev)
+                self.hist_ptr = torch.zeros((B,), dtype=i32, device=dev)
+                self.hist_len = torch.zeros((B,), dtype=i32, device=dev)
+                self.isb_buf = torch.zeros((B, S, A, 8), dtype=f32,
+                                           device=dev)
+                self.isb_ptr = torch.zeros((B,), dtype=i32, device=dev)
+                self.isb_len = torch.zeros((B,), dtype=i32, device=dev)
 
         if self.map_type == "3":
             # Per-env sub-map (road_traffic.py:1057-1093): a categorical
@@ -530,12 +626,28 @@ class Scenario(BaseScenario):
                 env_index, sid, self.scenario_id)
         group_lo, group_size = self._group_bounds()
 
+        # Map '2': an env may start from a recorded state instead; its
+        # placements are drawn all the same and then replaced.
+        use_buffer = None
+        live = env_mask
+        if self.map_type == "2" and not first:
+            use_buffer, record = self._recorded_starts()
+            live = env_mask & ~use_buffer
+
         placed = torch.full((B, A, 2), 1e6, device=dev)
         new_path_id = self.path_id.clone()
         new_point_id = self.point_id.clone()
         for i, agent in enumerate(self.world.agents):
-            pid, point, pos, rot, vel = self._place(placed, env_mask,
+            pid, point, pos, rot, vel = self._place(placed, live,
                                                     group_lo, group_size)
+            if use_buffer is not None:
+                row = record[:, i]
+                pid = torch.where(use_buffer, row[:, 6].to(torch.int32), pid)
+                point = torch.where(use_buffer, row[:, 7].to(torch.int32),
+                                    point)
+                pos = torch.where(use_buffer[:, None], row[:, 0:2], pos)
+                rot = torch.where(use_buffer, row[:, 2], rot)
+                vel = torch.where(use_buffer[:, None], row[:, 3:5], vel)
             placed[:, i] = pos
             new_path_id[:, i] = pid
             new_point_id[:, i] = point
@@ -546,6 +658,8 @@ class Scenario(BaseScenario):
                                                    self.path_id)
         self.point_id = TorchUtils.where_from_index(env_index, new_point_id,
                                                     self.point_id)
+        if self.map_type == "2":
+            self._hist_reset(env_mask)
 
         # Derived state
         s = self.world.state
@@ -713,6 +827,10 @@ class Scenario(BaseScenario):
             # Post-reward updates (road_traffic.py:1716-1734)
             self.prev_pos = self.world.state.pos
             self.short_term = self._new_short_term
+            if self.map_type == "2":
+                # The step's state into the history ring
+                # (road_traffic.py:1718-1730).
+                self._hist_push(self._current_snapshot())
         return rew
 
     _new_short_term = None
@@ -892,6 +1010,16 @@ class Scenario(BaseScenario):
                                    device=self.world.device)
             return is_collision_with_agents | is_collision_with_lanelets
 
+        if self.map_type == "2":
+            # Record the state from n_steps_stored steps before an
+            # agent-agent collision (road_traffic.py:2302-2310), a per-env
+            # draw where the reference draws once for all envs.
+            do_record = (torch.rand((B,), generator=self.world.generator,
+                                    device=self.world.device)
+                         < self.probability_record) & is_collision_with_agents
+            self._isb_append(do_record,
+                             self._hist_latest(self.n_steps_stored))
+
         if self.is_testing_mode:
             # Collisions never terminate; only the colliding agents are
             # re-placed (road_traffic.py:2313-2330).
@@ -973,6 +1101,8 @@ class Scenario(BaseScenario):
         if self.map_type == "3" or self.is_testing_mode:
             self.collide_entry = self.collide_entry & ~env_m[:, None]
             self.collide_exit = self.collide_exit & ~env_m[:, None]
+        if self.map_type == "2":
+            self._hist_reset(env_m)
 
     def info(self, agent):
         i = agent.agent_index

@@ -5,6 +5,9 @@ PyTorch counterpart of ``vectorizedmultiagentsimulator_tpu/sensors.py``.
 LIDAR that shares this one's filter, base angles and max_range in one
 launch of the ray-cast kernel, which turns the base angles into
 world-frame angles itself, and each LIDAR reads its own slice.
+``measure(vectorized=False)`` is the reference's ray-by-ray form: one
+``World.cast_ray`` (one launch) a ray, on the same world-frame angles, so
+both forms give the same bits.
 Rendering is not ported: ``render`` returns no geometry.
 """
 from __future__ import annotations
@@ -78,10 +81,20 @@ class Lidar(Sensor):
     def entity_filter(self, entity_filter: Callable):
         self._entity_filter = entity_filter
 
-    def measure(self) -> torch.Tensor:
+    def measure(self, vectorized: bool = True) -> torch.Tensor:
         """Distances ``[B, n_rays]`` to the first entity the filter
-        selects along each ray, capped at ``max_range``."""
-        return self._world.measure_lidar(self)
+        selects along each ray, capped at ``max_range``: with the LIDAR's
+        group (``vectorized``), or one ``World.cast_ray`` a ray
+        (sensors.py:91-110)."""
+        if vectorized:
+            return self._world.measure_lidar(self)
+        angles = self._angles[None, :] + self.agent.state.rot  # [B, R]
+        return torch.stack([
+            self._world.cast_ray(self.agent, angles[:, i],
+                                 max_range=self._max_range,
+                                 entity_filter=self.entity_filter)
+            for i in range(angles.shape[1])
+        ], dim=1)
 
     def render(self, env_index: int = 0) -> list:
         return []

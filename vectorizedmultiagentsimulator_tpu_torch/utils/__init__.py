@@ -92,15 +92,19 @@ class TorchUtils:
         return torch.where(pos, safe, torch.zeros_like(sq))
 
     @staticmethod
-    def clamp_with_norm(tensor: Tensor, max_norm: Tensor) -> Tensor:
-        """Rescale rows whose norm exceeds ``max_norm``.  A safe divisor
-        keeps the unselected branch finite, and an infinite ``max_norm``
-        (no clamp) is replaced by 0 in the never-selected scaled branch so
-        its backward never forms 0 * inf."""
+    def clamp_with_norm(tensor: Tensor, max_norm) -> Tensor:
+        """Rescale rows whose norm exceeds ``max_norm`` (a tensor or a
+        number).  A safe divisor keeps the unselected branch finite, and an
+        infinite ``max_norm`` (no clamp) is replaced by 0 in the
+        never-selected scaled branch so its backward never forms 0 * inf."""
         norm = TorchUtils.safe_norm(tensor, dim=-1, keepdim=True)
-        finite_max = torch.where(
-            torch.isfinite(max_norm), max_norm, torch.zeros_like(max_norm)
-        )
+        if not isinstance(max_norm, Tensor):
+            max_norm = float(max_norm)
+            finite_max = max_norm if math.isfinite(max_norm) else 0.0
+        else:
+            finite_max = torch.where(
+                torch.isfinite(max_norm), max_norm, torch.zeros_like(max_norm)
+            )
         scaled = tensor / torch.clamp_min(norm, 1e-12) * finite_max
         return torch.where(norm > max_norm, scaled, tensor)
 
