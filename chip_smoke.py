@@ -51,7 +51,10 @@ Phases, one line each:
      multidiscrete mode, with a 1-wide action, with norm_n != mb, with a
      ragged last tile, with hidden sizes of 96, 100 (padded to 112), 128,
      256 and 300 (smaller tiles; at 256 the gradient sums in device memory,
-     at 300 the trunk weights read from there too), at
+     at 300 the trunk weights read from there too), at 1536 and 2048 (the
+     activation tiles in device memory too; one minibatch of a real
+     transport@256 rollout with the trainer's own parameters, and each
+     one's time, bound and plain time), at
      the shapes of every training run of phases 3 to 5 from random data,
      and on the packed rollout of a real rollout of each training path of
      phase 3 (transport@4096 over 64 steps, navigation@4096 over 16); max
@@ -176,7 +179,30 @@ Phases, one line each:
      traces);
      then the port bench once
      (`python -m vectorizedmultiagentsimulator_tpu_torch.bench`,
-     transport@30k).
+     transport@30k);
+  7. the edges: make_env(..., wrapper="gym") and wrapper="rllib" (plain
+     classes where gym and ray are absent), and "gymnasium" and
+     "gymnasium_vec" where gymnasium is installed (else a line saying the
+     CPU tests hold them), on transport, navigation and football 5v5 at
+     30k after 10 steps: one step through each wrapper against the
+     unwrapped env's from the same state, generator state and actions
+     (env 0 for the single-env wrappers, all 30k envs for rllib's
+     vector_step and gymnasium_vec), every output equal to the bit, and the
+     ms a step of each beside the unwrapped step's; rgb_array frames of
+     navigation, football 5v5 and joint_passage at 30k and road_traffic
+     (map '1') at 10k after 10 steps, of the other scenarios that draw
+     (EDGE_FRAME_OTHERS) at 64 envs with their LIDAR rays after 3 steps,
+     and of navigation with its LIDAR
+     rays after a 10-step graph rollout, each against the frame the port
+     renders on the CPU from the same env-0 state (0 differing pixels) and
+     made with one host sync, its device-to-host copy (counted by
+     torch.cuda.set_sync_debug_mode("warn")), the rays
+     present, and the ms a frame at 30k and at 64 envs; checkpoints of
+     transport@30k and road_traffic map '2'@10k: 20 steps, save_env, 20
+     more, restored into a fresh env (and, through rollout's graph, into
+     the env holding the captured graph) and 20 steps equal to the bit
+     (outputs, final state, generator), eagerly and through the graph,
+     with the file's bytes and the ms to save and to restore.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -194,8 +220,9 @@ with the agent-geometry, pair and neighbour kernels' device time a launch;
 "lidar", two of navigation and flocking at 30k with the ray cast's device
 time and launches a step; "football", two of football 5v5 at 30k with the
 device busy time, device kernels and planner kernel time a step; "train",
-two training iterations of transport@16384 (update and iteration ms); it
-prints each run and a JSON summary.
+two training iterations of transport@16384 (update and iteration ms);
+"ppo", one PPO minibatch at transport@4096's shapes at hidden 64, 256 and
+300 (ms a call and device ms); it prints each run and a JSON summary.
 """
 import contextlib
 import json
@@ -204,6 +231,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -247,7 +275,10 @@ AB_ROAD = ("road_traffic", 10_000)
 AB_LIDAR = ("navigation", "flocking")
 # The groups --ab runs by default (rate_worker), football 5v5@30k's step
 # and planner among them.
-AB_GROUPS = ("joint", "road", "lidar", "football", "train")
+AB_GROUPS = ("joint", "road", "lidar", "football", "train", "ppo")
+# The PPO kernel's hidden sizes of the "ppo" group: the three layouts
+# that keep the activation tiles in shared memory.
+AB_PPO_HIDDEN = (64, 256, 300)
 # (scenario, envs, agents, obs width, ray-cast launches a step (one a LIDAR
 # group: navigation's and flocking's four LIDARs are one), planner
 # launches a step, road-kernel launches a step: agent geometry, pair,
@@ -414,6 +445,8 @@ PPO_BUILDS = {
     "transport multidiscrete hidden 128": (15, 2, 3, 128),
     "transport hidden 256": (15, 2, 0, 256),
     "transport hidden 300": (15, 2, 0, 300),
+    "transport hidden 1536": (15, 2, 0, 1536),
+    "transport hidden 2048": (15, 2, 0, 2048),
 }
 # The shapes phase 2 holds beside the default one: wider trunks take
 # smaller tiles (64, 32, 16 samples), a hidden size that is not a multiple
@@ -426,6 +459,9 @@ PPO_WIDE = ("transport hidden 96", "transport hidden 100",
 # the training runs of phase 3; a step observes once and once more in its
 # masked reset, so it casts its LIDAR group twice.  The last trains a
 # hidden-256 trunk through the kernel.
+# The hidden sizes past 1,040 phase 2 holds (the fourth layout: activation
+# tiles and hidden-size vectors in device memory).
+PPO_GLOBAL_TILES = (1536, 2048)
 TRAIN_PATHS = [("transport", 4096, 64, 3, 0, 64),
                ("navigation", 4096, 16, 2, 2, 64),
                ("transport", 4096, 16, 1, 0, 256)]
@@ -1147,9 +1183,12 @@ def rate_worker(root, groups=AB_GROUPS):
     planner kernel ms a step (the planner's launch and the small kernels
     around it); "train", for AB_TRAIN at the PPOConfig defaults, after one
     warm-up iteration, two iterations' update ms and whole-iteration ms
-    (host clock, each ended by a synchronize); one JSON line of {metric:
-    value}."""
+    (host clock, each ended by a synchronize); "ppo", for each hidden
+    size of AB_PPO_HIDDEN one minibatch at transport@4096's shapes from
+    random inputs (phase 2's), ms a call and device ms; one JSON line of
+    {metric: value}."""
     sys.path.insert(0, os.path.abspath(root))
+    sys.path.insert(1, os.path.join(ROOT, "tests"))
     import torch
     import vectorizedmultiagentsimulator_tpu_torch as vmt
     from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
@@ -1205,6 +1244,19 @@ def rate_worker(root, groups=AB_GROUPS):
         out["football device kernels/step"] = n_kernels
         out["football planner device ms/step"] = named["planner"]
         del env, actions
+    for hidden in AB_PPO_HIDDEN if "ppo" in groups else ():
+        from vectorizedmultiagentsimulator_tpu_torch.ops import (
+            ppo_update_cuda,
+        )
+
+        spec = ppo_spec(PPO_BUILDS["transport"][:3] + (hidden,))
+        inputs = ppo_random_case(spec, 256, 20)
+        call = lambda: ppo_update_cuda.minibatch_update(spec, *inputs)  # noqa: E731
+        for _ in range(3):
+            call()
+        out[f"ppo hidden {hidden} ms/call"] = cuda_time_ms(call, 10)
+        out[f"ppo hidden {hidden} device ms"] = device_ms(call, 5, "ppo_")
+        del inputs
     if "train" not in groups:
         print(json.dumps(out), flush=True)
         return
@@ -1540,11 +1592,37 @@ def profile_training(name, num_envs):
 def ppo_layout(spec):
     from vectorizedmultiagentsimulator_tpu_torch.ops import ppo_update_cuda
 
-    tile, global_sums, global_weights = ppo_update_cuda.layout(spec)
-    return (f"tile {tile}, sums in {'device' if global_sums else 'shared'}"
-            f" memory, trunk weights in"
-            f" {'device' if global_weights else 'shared'} memory,"
+    tile, global_sums, global_weights, global_tiles = ppo_update_cuda.layout(
+        spec)
+    where = lambda g: "device" if g else "shared"  # noqa: E731
+    return (f"tile {tile}, sums in {where(global_sums)} memory, trunk"
+            f" weights in {where(global_weights)} memory, activation tiles"
+            f" in {where(global_tiles)} memory,"
             f" {ppo_update_cuda.blocks_per_sm(spec)} block(s) an SM")
+
+
+def ppo_real_case(name, num_envs, steps, hidden):
+    """The spec and one minibatch's inputs of init_training(name, num_envs)
+    with a ``hidden``-wide trunk: a real ``steps``-step rollout's packed
+    columns, a shuffle of its blocks, its advantage statistics and the
+    trainer's parameters."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
+
+    env, _, trainer = torch_ppo.init_training(
+        name, num_envs, seed=0,
+        cfg=torch_ppo.PPOConfig(rollout_steps=steps, hidden=hidden))
+    spec = trainer.spec
+    packed, _ = trainer.collect()
+    nb_tot, nbm = trainer.n // spec.lb, spec.mb // spec.lb
+    perm = torch.randperm(
+        nb_tot, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(9),
+    )[:nbm].to(torch.int32)
+    adv = packed[spec.obs_d + spec.act_w + 1].reshape(
+        nb_tot, spec.lb)[perm.long()]
+    stats = torch.stack([adv.mean(), 1.0 / (adv.std(unbiased=False) + 1e-8)])
+    return spec, (packed, perm, stats, trainer.model.kernel_params())
 
 
 def ppo_times(spec, inputs, label):
@@ -1576,9 +1654,8 @@ def ppo_times(spec, inputs, label):
 
 def ppo_phase_2(errs):
     """Phase 2 for the PPO kernel; returns the times of transport@4096's
-    minibatch and of the same at hidden 256 (``ppo_times``)."""
-    import torch
-    from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
+    minibatch, of the same at hidden 256, and of each PPO_GLOBAL_TILES
+    width's real minibatch (``ppo_times``)."""
     from vectorizedmultiagentsimulator_tpu_torch.ops import ppo_update_cuda
 
     transport = ppo_spec(PPO_BUILDS["transport"])
@@ -1624,28 +1701,28 @@ def ppo_phase_2(errs):
     # The packed rollout of a real rollout of each training path of phase 3,
     # with its own parameters and statistics.
     for name, num_envs, steps, _, _, hidden in TRAIN_PATHS:
-        spec = train_spec(name, num_envs, steps, hidden)
-        env, _, trainer = torch_ppo.init_training(
-            name, num_envs, seed=0,
-            cfg=torch_ppo.PPOConfig(rollout_steps=steps, hidden=hidden))
-        assert trainer.spec == spec, trainer.spec
-        packed, _ = trainer.collect()
-        nb_tot, nbm = trainer.n // spec.lb, spec.mb // spec.lb
-        perm = torch.randperm(
-            nb_tot, device="cuda",
-            generator=torch.Generator(device="cuda").manual_seed(9),
-        )[:nbm].to(torch.int32)
-        adv = packed[spec.obs_d + spec.act_w + 1].reshape(
-            nb_tot, spec.lb)[perm.long()]
-        stats = torch.stack([adv.mean(),
-                             1.0 / (adv.std(unbiased=False) + 1e-8)])
+        spec, inputs = ppo_real_case(name, num_envs, steps, hidden)
+        assert spec == train_spec(name, num_envs, steps, hidden), spec
         errs.append(ppo_vs_plain(
-            spec, (packed, perm, stats, trainer.model.kernel_params()),
-            f"{name}@{num_envs} hidden {hidden}, a real {steps}-step"
-            f" rollout"))
-        del env, trainer, packed
+            spec, inputs, f"{name}@{num_envs} hidden {hidden}, a real"
+            f" {steps}-step rollout"))
+        del inputs
+    # Past hidden 1,040 (activation tiles in device memory): a real
+    # rollout of transport@256 over 16 steps (one minibatch of 4096
+    # samples) with the trainer's own initial parameters.
+    global_tiles = {}
+    for hidden in PPO_GLOBAL_TILES:
+        spec, inputs = ppo_real_case("transport", 256, 16, hidden)
+        assert ppo_update_cuda.layout(spec)[3], ppo_layout(spec)
+        errs.append(ppo_vs_plain(
+            spec, inputs, f"transport@256 hidden {hidden} ({ppo_layout(spec)}),"
+            " a real 16-step rollout"))
+        global_tiles[hidden] = ppo_times(spec, inputs,
+                                         f"transport@256 hidden {hidden}")
+        del inputs
 
-    return ppo_times(transport, timed, "transport@4096"), wide
+    return (ppo_times(transport, timed, "transport@4096"), wide,
+            global_tiles)
 
 
 def planner_bound_ms(p, B):
@@ -2383,6 +2460,357 @@ def port_bench():
     return result
 
 
+# --------------------------------------------------------------------- #
+# Phase 7: the edges (wrappers, frames, checkpoints) on the card
+# --------------------------------------------------------------------- #
+# The scenes of each part, at their main paths' widths (PATH_ENVS).
+EDGE_WRAP_SCENES = ("transport", "navigation", "football")
+EDGE_FRAME_SCENES = ("navigation", "football", "road_traffic",
+                     "joint_passage")
+EDGE_CKPT_SCENES = ("transport", "road_traffic_map2")
+# The other scenarios that draw with an extra_render (or hide eaten food),
+# one frame each at FRAME_SMALL_ENVS envs against the CPU's.
+EDGE_FRAME_OTHERS = ("discovery", "multi_give_way", "passage",
+                     "ball_passage", "joint_passage_size", "ball_trajectory",
+                     "asym_joint", "simple_tag", "drone", "diff_drive",
+                     "kinematic_bicycle", "line_trajectory",
+                     "circle_trajectory", "wind_flocking", "sampling",
+                     "dispersion")
+EDGE_STEPS = 10
+CKPT_STEPS = 20
+# A frame's time at the main path's envs and at this many.
+FRAME_SMALL_ENVS = 64
+
+
+def load_rows(dst, src, n):
+    """``dst``'s state := the first ``n`` envs of ``src``'s, and ``dst``'s
+    world generator the state of ``src``'s."""
+    s, d = src.world.state, dst.world.state
+    for f in ("pos", "vel", "rot", "ang_vel", "force", "torque", "c", "u",
+              "action_c", "steps"):
+        setattr(d, f, getattr(s, f)[:n].clone())
+    d.extras = {k: v[:n].clone() for k, v in s.extras.items()}
+    dst.world.generator.set_state(src.world.generator.get_state())
+
+
+def same_bits(got, want):
+    """Whether two numpy arrays (or Python scalars) hold the same bits."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and got.tobytes() == want.tobytes())
+
+
+def host_ms(fn, iters=5):
+    """Host ms of one ``fn()`` that ends on the host (a median of
+    ``iters``)."""
+    import torch
+
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def wrapper_vs_plain(name, kind, big):
+    """``kind``'s step against the unwrapped env's from the same state,
+    generator state and actions (env 0 of ``big``'s state for the
+    single-env wrappers, all its envs for the vectorized ones): every
+    output equal to the bit; returns (wrapper ms a step, unwrapped ms a
+    step)."""
+    import numpy as np
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.utils import TorchUtils
+
+    single = kind in ("gym", "gymnasium")
+    n = 1 if single else big.num_envs
+    tt = kind.startswith("gymnasium")
+    wrapped = make_path_env(name, n, wrapper=kind, terminated_truncated=tt)
+    plain = make_path_env(name, n, terminated_truncated=tt)
+    base = wrapped.env if kind == "rllib" else wrapped.unwrapped
+    sizes = [plain.get_agent_action_size(a) for a in plain.agents]
+    rng = np.random.RandomState(3)
+
+    def actions():
+        return [rng.uniform(-1, 1, (n, s)).astype(np.float32) for s in sizes]
+
+    def wrapped_step(acts):
+        if kind == "rllib":
+            return wrapped.vector_step(
+                [[a[j] for a in acts] for j in range(n)])
+        return wrapped.step([a[0] for a in acts] if single else acts)
+
+    def plain_step(acts):
+        return plain.step([torch.as_tensor(a, device="cuda") for a in acts])
+
+    acts = actions()
+    for env in (base, plain):
+        load_rows(env, big, n)
+    got = wrapped_step(acts)
+    want = TorchUtils.to_numpy(plain_step(acts))
+    obs_w, rews_w = want[0], want[1]
+    bad = []
+    if kind == "rllib":
+        obs, rews, dones, infos = got
+        total = np.zeros(n)
+        for r in rews_w:
+            total = total + r.astype(np.float64)
+        if not all(same_bits(np.stack([o[i] for o in obs]), obs_w[i])
+                   for i in range(len(obs_w))):
+            bad.append("obs")
+        if not same_bits(np.asarray(rews), total / len(rews_w)):
+            bad.append("rews")
+        if not same_bits(dones, want[2]):
+            bad.append("dones")
+        for j in (0, n // 2, n - 1):
+            for i, agent in enumerate(plain.agents):
+                for k, v in infos[j][agent.name].items():
+                    # a Python scalar where the value is one per env
+                    v = np.asarray(v)
+                    if not same_bits(v, want[3][i][k][j].astype(v.dtype)):
+                        bad.append(f"info {agent.name}.{k} env {j}")
+    else:
+        obs, rews, *flags, info = got
+        rows = (lambda x: x[0]) if single else (lambda x: x)  # noqa: E731
+        if not all(same_bits(o, rows(w)) for o, w in zip(obs, obs_w)):
+            bad.append("obs")
+        if not all(same_bits(r, rows(w).item() if single else rows(w))
+                   for r, w in zip(rews, rews_w)):
+            bad.append("rews")
+        for f, w in zip(flags, want[2:-1]):
+            if not same_bits(f, rows(w).item() if single else rows(w)):
+                bad.append("flags")
+        for i, agent in enumerate(plain.agents):
+            for k, v in info[agent.name].items():
+                if not same_bits(v, rows(want[-1][i][k])):
+                    bad.append(f"info {agent.name}.{k}")
+    if bad:
+        raise AssertionError(f"[7] {name} {kind}: outputs differ from the"
+                             f" unwrapped env's: {bad}")
+    ms = host_ms(lambda: wrapped_step(acts), iters=3)
+    plain_ms = host_ms(lambda: plain_step(acts), iters=3)
+    log(f"[7] {name}@{n} wrapper {kind}: every output equal to the bit to"
+        f" the unwrapped env's step; {ms:.3f} ms a step through the wrapper,"
+        f" {plain_ms:.3f} ms unwrapped (host clock to a synchronized end)")
+    return ms, plain_ms
+
+
+def host_syncs(fn):
+    """The synchronizing CUDA operations ``fn()`` makes (a device-to-host
+    copy is one), counted by the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def frame_vs_cpu(name, env, label, sensors=False):
+    """``env``'s frame of env 0 against the frame the port renders on the
+    CPU from the same env-0 state (state_to_numpy / state_from_numpy into
+    a one-env CPU env): differing pixels, held at 0; one host sync a frame,
+    its device-to-host copy.  Returns (the frame, its host ms)."""
+    from vectorizedmultiagentsimulator_tpu_torch.utils import (
+        state_from_numpy,
+        state_to_numpy,
+    )
+
+    arrays = state_to_numpy(env)
+    row = {f: a[:1] for f, a in arrays.items() if f != "extras"}
+    row["extras"] = {k: v[:1] for k, v in arrays["extras"].items()}
+    cpu = make_path_env(name, 1, device="cpu")
+    state_from_numpy(cpu, row)
+    got = env.render(mode="rgb_array", env_index=0, render_sensors=sensors)
+    want = cpu.render(mode="rgb_array", env_index=0, render_sensors=sensors)
+    differ = int((got != want).any(axis=-1).sum())
+    copies = host_syncs(lambda: env.render(mode="rgb_array",
+                                           render_sensors=sensors))
+    ms = host_ms(lambda: env.render(mode="rgb_array", render_sensors=sensors))
+    log(f"[7] frame {label}: {got.shape[1]}x{got.shape[0]}, {differ}"
+        f" pixels differ from the CPU's frame of the same state,"
+        f" {copies} host sync(s) a frame (its one device-to-host copy),"
+        f" {ms:.2f} ms a frame")
+    if differ or copies != 1:
+        raise AssertionError(f"[7] frame {label}: {differ} pixels differ,"
+                             f" {copies} host syncs")
+    return got, ms
+
+
+def step_outputs(outs):
+    """A step's observations, rewards and dones as one flat tensor."""
+    import torch
+
+    obs, rews, dones = outs[:3]
+    return torch.cat([x.reshape(-1).float() for x in list(obs) + list(rews)]
+                     + [dones.reshape(-1).float()])
+
+
+def traj_outputs(traj):
+    import torch
+
+    return torch.cat([x.reshape(-1).float() for x in
+                      list(traj["obs"]) + list(traj["rews"])
+                      + [traj["dones"]]])
+
+
+def state_equal(a, b):
+    import torch
+
+    fields = ("pos", "vel", "rot", "ang_vel", "force", "torque", "c", "u",
+              "action_c", "steps")
+    return (all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+            and a.extras.keys() == b.extras.keys()
+            and all(torch.equal(a.extras[k], b.extras[k]) for k in a.extras))
+
+
+def checkpoint_check(name, path):
+    """CKPT_STEPS steps, save_env, CKPT_STEPS more; a fresh env restored
+    from the file steps the same CKPT_STEPS to the bit (outputs, final
+    state, generator).  Eagerly (random actions from the world's
+    generator), then through rollout's graph, the policy drawing from the
+    world's generator: restored into the env that holds the captured graph
+    (a replay from the restored generator state) and into a fresh env (a
+    new capture).  Returns (file bytes, save ms, restore ms)."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.parallel import rollout
+    from vectorizedmultiagentsimulator_tpu_torch.utils import checkpoint
+
+    def eager(env):
+        return torch.cat([step_outputs(env.step(env.get_random_actions()))
+                          for _ in range(CKPT_STEPS)])
+
+    def graph(env):
+        _, traj = rollout(env, n_steps=CKPT_STEPS,
+                          generator=env.world.generator)
+        return traj_outputs(traj)
+
+    label = f"{name}@{PATH_ENVS[name]}"
+    results = {}
+    for how, run in (("eager", eager), ("graph", graph)):
+        env = make_path_env(name)
+        run(env)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_env(path, env)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        want = run(env)
+        want_state = env.world.state
+        want_rng = env.world.generator.get_state()
+        envs = [make_path_env(name, seed=7)] + ([env] if how == "graph"
+                                                else [])
+        for target in envs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.restore_env(path, target)
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            got = run(target)
+            ok = (torch.equal(got, want)
+                  and state_equal(target.world.state, want_state)
+                  and torch.equal(target.world.generator.get_state(),
+                                  want_rng))
+            where = "the graph's own env" if target is env else "a fresh env"
+            if not ok:
+                raise AssertionError(f"[7] checkpoint {label} {how}: {where}"
+                                     " does not continue to the bit")
+            log(f"[7] checkpoint {label} {how}: restored into {where},"
+                f" {CKPT_STEPS} steps equal to the bit (outputs, final"
+                f" state, generator)")
+        results[how] = (os.path.getsize(path), save_ms, restore_ms)
+        del env, envs, want, want_state
+    size, save_ms, restore_ms = results["eager"]
+    log(f"[7] checkpoint {label}: {size} bytes, save {save_ms:.1f} ms,"
+        f" restore {restore_ms:.1f} ms (eager); graph path save"
+        f" {results['graph'][1]:.1f} ms, restore {results['graph'][2]:.1f}"
+        f" ms")
+    return results
+
+
+def edges_phase(tmp):
+    """Phase 7: the wrappers, frames and checkpoints on the card."""
+    import importlib.util
+
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.parallel import rollout
+
+    kinds = ["gym", "rllib"]
+    if importlib.util.find_spec("gymnasium") is not None:
+        kinds += ["gymnasium", "gymnasium_vec"]
+    else:
+        log("[7] gymnasium is not installed here: the CPU tests"
+            " (tests/test_torch_wrappers.py) hold the gymnasium and"
+            " gymnasium_vec wrappers")
+    for name in EDGE_WRAP_SCENES:
+        big = make_path_env(name)
+        for a in random_actions(big, EDGE_STEPS, seed=11):
+            big.step(a)
+        for kind in kinds:
+            wrapper_vs_plain(name, kind, big)
+        del big
+
+    frame_ms = {}
+    for name in EDGE_FRAME_SCENES:
+        env = make_path_env(name)
+        for a in random_actions(env, EDGE_STEPS, seed=12):
+            env.step(a)
+        _, frame_ms[name] = frame_vs_cpu(
+            name, env, f"{name}@{env.num_envs} after {EDGE_STEPS} steps")
+        del env
+    for name in EDGE_FRAME_OTHERS:
+        env = make_path_env(name, FRAME_SMALL_ENVS)
+        for a in random_actions(env, 3, seed=12):
+            env.step(a)
+        frame_vs_cpu(name, env, f"{name}@{FRAME_SMALL_ENVS} after 3 steps",
+                     sensors=True)
+        del env
+    # navigation after a graph rollout (the LIDAR casts dropped): the rays
+    # of the last step, as the CPU draws them from the same state.
+    env = make_path_env("navigation")
+    rollout(env, n_steps=EDGE_STEPS)
+    rays, _ = frame_vs_cpu("navigation", env,
+                           f"navigation@{env.num_envs} with its LIDAR rays"
+                           f" after a {EDGE_STEPS}-step graph rollout",
+                           sensors=True)
+    plain = env.render(mode="rgb_array")
+    ray_pixels = int((rays != plain).any(axis=-1).sum())
+    log(f"[7] navigation's LIDAR rays after the graph rollout: {ray_pixels}"
+        " pixels differ from the frame without them")
+    if ray_pixels < 100:
+        raise AssertionError("[7] the frame after a graph rollout draws no"
+                             " LIDAR rays")
+    small = make_path_env("navigation", FRAME_SMALL_ENVS)
+    for a in random_actions(small, EDGE_STEPS, seed=12):
+        small.step(a)
+    small_ms = host_ms(lambda: small.render(mode="rgb_array"))
+    big_ms = host_ms(lambda: env.render(mode="rgb_array"))
+    log(f"[7] navigation frame: {big_ms:.2f} ms at {env.num_envs} envs,"
+        f" {small_ms:.2f} ms at {FRAME_SMALL_ENVS} envs")
+    del env, small
+    torch.cuda.empty_cache()
+
+    ckpt = {}
+    for name in EDGE_CKPT_SCENES:
+        ckpt[name] = checkpoint_check(
+            name, os.path.join(tmp, f"{name}.npz"))
+    return {"frame_ms": frame_ms, "navigation_frame_ms": {
+        str(PATH_ENVS["navigation"]): big_ms,
+        str(FRAME_SMALL_ENVS): small_ms}, "checkpoints": ckpt}
+
+
 def main():
     import torch
 
@@ -2684,7 +3112,7 @@ def main():
     road_errs = {"geometry": [], "neighbor_obs": []}
     road_times, road_layouts = road_phase_2(road_errs)
     ppo_errs = []
-    ppo_t, ppo_wide = ppo_phase_2(ppo_errs)
+    ppo_t, ppo_wide, ppo_global_tiles = ppo_phase_2(ppo_errs)
 
     phase_time(2)
 
@@ -2789,6 +3217,11 @@ def main():
     port_bench()
     phase_time(6)
 
+    # ---- 7: the edges: wrappers, frames, checkpoints ---- #
+    with tempfile.TemporaryDirectory() as tmp:
+        edges_phase(tmp)
+    phase_time(7)
+
     print(json.dumps({"kernels": [
         {
             "name": "physics_step",
@@ -2873,6 +3306,9 @@ def main():
             # The same minibatch at hidden 256 (gradient sums in device
             # memory).
             "hidden_256": ppo_wide,
+            # Past hidden 1,040 (activation tiles in device memory): one
+            # minibatch of a real transport@256 rollout.
+            **{f"hidden_{h}": t for h, t in ppo_global_tiles.items()},
             # No single PyTorch call computes a PPO minibatch's gradients.
             "library_ms": None,
         },

@@ -140,20 +140,27 @@ def test_wrapper_raises_on_mixed_devices_and_counts_nothing_on_cpu():
     _plain(spec, inputs)
     assert puc.LAUNCHES == before
     # Tiles shrink as the trunk widens; past about hidden 160 the gradient
-    # sums leave shared memory, past about 256 the bf16 weights too.
-    assert puc.layout(spec) == (64, False, False)
-    assert puc.layout(spec._replace(hidden=64)) == (64, False, False)
-    assert puc.layout(spec._replace(hidden=100)) == (64, False, False)
-    assert puc.layout(spec._replace(hidden=128)) == (32, False, False)
-    assert puc.layout(spec._replace(hidden=256)) == (16, True, False)
-    assert puc.layout(spec._replace(hidden=320)) == (32, True, True)
-    for hidden in (100, 256, 512, 1024):
+    # sums leave shared memory, past about 256 the bf16 weights too, past
+    # about 1,040 the activation tiles and hidden-size vectors too.
+    assert puc.layout(spec) == (64, False, False, False)
+    assert puc.layout(spec._replace(hidden=64)) == (64, False, False, False)
+    assert puc.layout(spec._replace(hidden=100)) == (64, False, False, False)
+    assert puc.layout(spec._replace(hidden=128)) == (32, False, False, False)
+    assert puc.layout(spec._replace(hidden=256)) == (16, True, False, False)
+    assert puc.layout(spec._replace(hidden=300)) == (32, True, True, False)
+    assert puc.layout(spec._replace(hidden=320)) == (32, True, True, False)
+    assert puc.layout(spec._replace(hidden=1040)) == (16, True, True, False)
+    for hidden in (100, 256, 512, 1024, 1100, 1536, 2048, 4096):
         assert puc.update_supported(spec._replace(hidden=hidden))
-    # Only a trunk whose fp32 activation tiles alone overflow a block is
-    # refused.
-    assert not puc.update_supported(spec._replace(hidden=1100))
+    wide = spec._replace(obs_d=15, hidden=1536)
+    for hidden in (1536, 2048, 4096):
+        assert puc.layout(wide._replace(hidden=hidden)) == (64, True, True,
+                                                             True)
+        assert "PPO_XG=1" in puc.defines(wide._replace(hidden=hidden))
+    # Only packed rows too many for two raw tiles of 16 samples are refused.
+    assert not puc.update_supported(spec._replace(obs_d=2000))
     with pytest.raises(ValueError, match="does not take"):
-        puc.build(spec._replace(hidden=1100))
+        puc.build(spec._replace(obs_d=2000))
     packed, perm, stats, params = inputs
     with pytest.raises(ValueError, match="CUDA tensors"):
         puc.launch(spec, torch.from_numpy(packed), torch.from_numpy(perm),
@@ -482,28 +489,29 @@ def test_trainer_spec_matches_the_jax_trainers(name, kwargs):
 
 
 def test_trainer_refuses_a_hidden_size_the_kernel_does_not_take():
-    """A hidden-256 trunk (gradient sums in device memory on the card)
-    trains a step through the kernel's path (its plain version on the
-    CPU); only a trunk too wide for the kernel at all makes the trainer
-    raise when it is built, instead of training through autograd, and the
-    autograd update takes that width when it is asked for."""
-    wide = dict(SMALL, hidden=256)
-    env, step, trainer = torch_ppo.init_training(
-        "dispersion", 8, 0, torch_ppo.PPOConfig(**wide), device="cpu")
-    assert trainer.fused and puc.layout(trainer.spec)[1]
-    before = [p.detach().clone() for p in trainer.model.ordered_parameters()]
-    trainer, metrics = step(trainer)
-    assert np.isfinite(float(metrics["loss"]))
-    after = trainer.model.ordered_parameters()
-    assert all(bool(torch.isfinite(p).all()) for p in after)
-    assert any(not torch.equal(p, b) for p, b in zip(after, before))
-    too_wide = dict(SMALL, hidden=1100)
+    """A hidden-256 trunk (gradient sums in device memory on the card) and
+    a hidden-1,100 one (activation tiles in device memory too) train a step
+    through the kernel's path (its plain version on the CPU), never routed
+    to autograd unasked; a spec the kernel does not take makes the trainer
+    raise when it is built, and the autograd update takes what it is asked
+    for."""
+    for hidden, placement in ((256, 1), (1100, 3)):
+        wide = dict(SMALL, hidden=hidden)
+        env, step, trainer = torch_ppo.init_training(
+            "dispersion", 8, 0, torch_ppo.PPOConfig(**wide), device="cpu")
+        assert trainer.fused and puc.layout(trainer.spec)[placement]
+        before = [p.detach().clone()
+                  for p in trainer.model.ordered_parameters()]
+        trainer, metrics = step(trainer)
+        assert np.isfinite(float(metrics["loss"]))
+        after = trainer.model.ordered_parameters()
+        assert all(bool(torch.isfinite(p).all()) for p in after)
+        assert any(not torch.equal(p, b) for p, b in zip(after, before))
     with pytest.raises(ValueError, match="does not take"):
-        torch_ppo.init_training("dispersion", 8, 0,
-                                torch_ppo.PPOConfig(**too_wide), device="cpu")
+        puc.require_supported(trainer.spec._replace(obs_d=2000))
     _, _, trainer = torch_ppo.init_training(
         "dispersion", 8, 0,
-        torch_ppo.PPOConfig(**too_wide, fused_update=False), device="cpu")
+        torch_ppo.PPOConfig(**wide, fused_update=False), device="cpu")
     assert not trainer.fused
 
 
@@ -558,9 +566,25 @@ HOST_CASES = {
     "hidden300_global_weights": (
         dict(obs_d=15, act_w=2, hidden=300, lb=40, mb=120), 4),
 }
+# Trunks compiled with the activation tiles and hidden-size vectors in the
+# scratch past the partial buffer all the same (the layout past hidden
+# 1,040), at the tile their own layout takes: the layout in every head
+# mode, a ragged last tile and padding at the cost of small trunks.  On the
+# host every layout runs the same sums in the same order, so these must
+# also equal their own layout's result to the bit.
+HOST_GLOBAL_TILES = {
+    "gaussian_global_tiles": (
+        dict(obs_d=6, act_w=2, hidden=8, lb=16, mb=64), 8),
+    "multidiscrete_global_tiles": (
+        dict(obs_d=6, act_w=3, hidden=32, lb=16, mb=320, n_logits=4), 24),
+    "hidden100_ragged_global_tiles": (
+        dict(obs_d=22, act_w=2, hidden=100, lb=40, mb=200), 7),
+    "hidden300_global_tiles": (
+        dict(obs_d=15, act_w=2, hidden=300, lb=40, mb=120), 4),
+}
 
 
-@pytest.mark.parametrize("name", sorted(HOST_CASES))
+@pytest.mark.parametrize("name", sorted(HOST_CASES) + sorted(HOST_GLOBAL_TILES))
 def test_kernel_source_on_the_host_matches_plain(name, tmp_path):
     """``csrc/ppo_update.cu`` compiled as host C++ (its phases run as loops
     over the thread index) against the plain version, on one block and on
@@ -576,33 +600,51 @@ def test_kernel_source_on_the_host_matches_plain(name, tmp_path):
     cxx = shutil.which("c++") or shutil.which("g++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
-    fields, nb_tot = HOST_CASES[name]
+    forced = name in HOST_GLOBAL_TILES
+    fields, nb_tot = (HOST_GLOBAL_TILES if forced else HOST_CASES)[name]
     spec = puc.PPOUpdateSpec(**fields, **COEFS)
-    lib_path = str(tmp_path / "libppo_host.so")
-    subprocess.run(
-        [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-x", "c++",
-         *[f"-D{d}" for d in puc.defines(spec)], "-o", lib_path, puc.SOURCE],
-        check=True,
-    )
-    lib = ctypes.CDLL(lib_path)
-    assert lib.vmt_ppo_p() == puc.flat_size(spec)
-    assert lib.vmt_ppo_smem_bytes() == puc.smem_bytes(spec,
-                                                      *puc.layout(spec))
-    lib.vmt_ppo_update.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int,
-                                                           ctypes.c_void_p]
+    tile, *natural = puc.layout(spec)
     packed, perm, stats, params = random_ppo_inputs(spec, nb_tot, seed=5)
     ref_g, ref_s = _plain(spec, (packed, perm, stats, params))
     dims = puc.ppo_dims(spec, packed.shape[1])
     pointers = puc._PPOParams(
         (ctypes.c_void_p * 11)(*[p.ctypes.data for p in params]))
-    for grid in (1, 3):
-        partial = np.zeros((grid, puc.flat_size(spec)), np.float32)
+
+    def host_update(placement, grid):
+        defines = [d for d in puc.defines(spec) if d.split("=")[0] not in
+                   ("PPO_GG", "PPO_WG", "PPO_XG")]
+        defines += [f"PPO_{k}={int(v)}"
+                    for k, v in zip(("GG", "WG", "XG"), placement)]
+        scratch = puc.scratch_floats(spec, tile, placement[2])
+        lib_path = str(tmp_path / f"libppo_{''.join(defines[-3:])}.so")
+        if not os.path.exists(lib_path):
+            subprocess.run(
+                [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-x", "c++",
+                 *[f"-D{d}" for d in defines], "-o", lib_path, puc.SOURCE],
+                check=True,
+            )
+        lib = ctypes.CDLL(lib_path)
+        assert lib.vmt_ppo_p() == puc.flat_size(spec)
+        assert lib.vmt_ppo_smem_bytes() == puc.smem_bytes(spec, tile,
+                                                          *placement)
+        assert lib.vmt_ppo_scratch_floats() == scratch
+        lib.vmt_ppo_update.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int, ctypes.c_void_p]
+        partial = np.zeros(
+            (puc.partial_floats(grid, puc.flat_size(spec), scratch),),
+            np.float32)
         out = np.zeros((puc.flat_size(spec),), np.float32)
         err = lib.vmt_ppo_update(
             packed.ctypes.data, perm.ctypes.data, stats.ctypes.data,
             ctypes.addressof(pointers), partial.ctypes.data, out.ctypes.data,
             ctypes.addressof(dims), grid, None)
         assert err == 0
+        return out
+
+    for grid in (1, 3):
+        out = host_update((True, True, True) if forced else natural, grid)
+        if forced:
+            np.testing.assert_array_equal(out, host_update(natural, grid))
         got_g, got_s = puc.split_flat(spec, torch.from_numpy(out))
         for i, (g, r) in enumerate(zip(got_g, ref_g)):
             assert g.shape == r.shape

@@ -452,6 +452,14 @@ class Entity(Observable):
             (self._world.batch_dim,), dtype=torch.bool,
             device=self._world.device)
 
+    def render(self, env_index: int = 0) -> list:
+        """The entity's geom for env ``env_index`` (none where it is not
+        rendering); ``Environment.render`` calls it on a host copy of the
+        state."""
+        from vectorizedmultiagentsimulator_tpu_torch.render import entity_geoms
+
+        return entity_geoms(self, env_index)
+
     # ------------------------------------------------------------------ #
     # State writes (reference core.py:733-761)
     # ------------------------------------------------------------------ #

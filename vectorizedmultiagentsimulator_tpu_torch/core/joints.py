@@ -253,3 +253,8 @@ class JointConstraint:
 
     def pos_point(self, entity):
         return entity.state.pos + self.get_delta_anchor(entity)
+
+    def render(self, env_index: int = 0) -> list:
+        from vectorizedmultiagentsimulator_tpu_torch.render import joint_geoms
+
+        return joint_geoms(self, env_index)

@@ -49,6 +49,13 @@
 //   block's own row of the [grid, P] partial buffer in device memory
 //   (PPO_GG=1), read, added and written by the one thread that owns each
 //   entry.
+// - A trunk whose three fp32 activation tiles overflow a block even at 16
+//   samples (past about hidden 1,040 at obs_d 15) keeps them, and the
+//   hidden-size vectors (Wm, Wv2 and the trunk's biases), in the block's
+//   own slice of a scratch in device memory past the partial buffer
+//   (PPO_XG=1, with PPO_GG=1 and PPO_WG=1), read and written through L2 as
+//   the weights of PPO_WG=1 are.  Only the raw tiles and the head's rows
+//   stay in shared memory.
 // - Tile loads overlap compute: the next tile's columns are copied with
 //   cp.async into the second of two raw buffers while the current tile
 //   computes; the minibatch's shuffle is folded into the address (sample q
@@ -56,7 +63,7 @@
 // - Two blocks an SM where the shared memory allows (the wrapper sizes the
 //   grid).
 // The head's shape is static and small, so the file is compiled once per
-// (OD, AW, H, NL, T, GG) with -D flags; n, mb, lb and the loss
+// (OD, AW, H, NL, T, GG, WG, XG) with -D flags; n, mb, lb and the loss
 // coefficients are runtime fields of PPODims.
 //
 // The body is written as phases over the block's threads with a barrier
@@ -83,8 +90,9 @@
 #endif
 
 #if !defined(PPO_OD) || !defined(PPO_AW) || !defined(PPO_H) || \
-    !defined(PPO_NL) || !defined(PPO_T) || !defined(PPO_GG) || !defined(PPO_WG)
-#error "compile with -DPPO_OD= -DPPO_AW= -DPPO_H= -DPPO_NL= -DPPO_T= -DPPO_GG= -DPPO_WG= (see ops/ppo_update_cuda.py)"
+    !defined(PPO_NL) || !defined(PPO_T) || !defined(PPO_GG) || \
+    !defined(PPO_WG) || !defined(PPO_XG)
+#error "compile with -DPPO_OD= -DPPO_AW= -DPPO_H= -DPPO_NL= -DPPO_T= -DPPO_GG= -DPPO_WG= -DPPO_XG= (see ops/ppo_update_cuda.py)"
 #endif
 
 // Sizes and coefficients that are fixed for a trainer, filled once by the
@@ -118,6 +126,9 @@ constexpr int D = OD + AW + 3 + HW;          // packed rows
 constexpr int T = PPO_T;        // samples per tile
 constexpr bool GG = PPO_GG != 0;  // gradient sums in device memory
 constexpr bool WG = PPO_WG != 0;  // trunk weights read from device memory
+// activation tiles and hidden-size vectors in device memory
+constexpr bool XG = PPO_XG != 0;
+static_assert(!XG || (GG && WG), "PPO_XG=1 needs PPO_GG=1 and PPO_WG=1");
 constexpr int NT = 256;         // threads per block
 constexpr int NWARPS = NT / 32;
 static_assert(T == 64 || T == 32 || T == 16, "T is 64, 32 or 16");
@@ -160,6 +171,23 @@ constexpr int G_SUMS = G_BV2 + 1;
 constexpr int P = G_SUMS + 3;
 constexpr int P4 = up4(P);  // P padded to 16 bytes
 
+// Two regions whose size grows with the hidden size, as offsets in floats
+// from their own base: the hidden-size vectors V and the activation tiles X.
+// They sit in shared memory unless PPO_XG=1, and then in the block's slice
+// of the scratch in device memory, in the same order.
+constexpr int V_WM = 0;                   // [H][HW]
+constexpr int V_WV2 = V_WM + up4(H * HW);  // [HP], 0 past H
+constexpr int V_B1 = V_WV2 + HP;
+constexpr int V_B2 = V_B1 + HP;
+constexpr int V_BV = V_B2 + HP;
+constexpr int NV = V_BV + HP;
+constexpr int X1 = 0;                     // [T][XS]: h1, then dz1
+constexpr int X2 = X1 + T * XS;           // h2, then dz2
+constexpr int XV = X2 + T * XS;           // hv, then dzv
+constexpr int NX = XV + T * XS;
+// A block's slice of the scratch (floats, a multiple of 4); 0 unless XG.
+constexpr int SCRATCH = XG ? NV + NX : 0;
+
 // Shared memory.  First the trunk weights as bf16 bits [rows][WS]: W1 and
 // Wv (ODP rows), W2 (HP rows); then fp32 regions, in floats, each on 16
 // bytes.
@@ -167,21 +195,15 @@ constexpr int WB_W1 = 0;
 constexpr int WB_WV = WB_W1 + ODP * WS;
 constexpr int WB_W2 = WB_WV + ODP * WS;
 constexpr int WB_END = WG ? 0 : WB_W2 + HP * WS;  // bf16 elements (a multiple of 8)
-constexpr int S_WM = WB_END / 2;          // [H][HW]
-constexpr int S_WV2 = S_WM + up4(H * HW);  // [HP], 0 past H
-constexpr int S_B1 = S_WV2 + HP;
-constexpr int S_B2 = S_B1 + HP;
-constexpr int S_BV = S_B2 + HP;
-constexpr int S_BM = S_BV + HP;
+constexpr int S_V = WB_END / 2;           // V unless XG
+constexpr int S_BM = S_V + (XG ? 0 : NV);
 constexpr int S_LS = S_BM + up4(HW);
 constexpr int S_BV2 = S_LS + up4(HW);
 constexpr int S_G = S_BV2 + 4;            // gradient sums (PPO_GG=0)
 constexpr int S_RAW = S_G + (GG ? 0 : P4);  // two raw tiles [RAW_ROWS][RS]
 constexpr int RAW = RAW_ROWS * RS;
-constexpr int S_X1 = S_RAW + 2 * RAW;     // [T][XS]: h1, then dz1
-constexpr int S_X2 = S_X1 + T * XS;       // h2, then dz2
-constexpr int S_XV = S_X2 + T * XS;       // hv, then dzv
-constexpr int S_MEAN = S_XV + T * XS;     // [HW][TS] mean or logits, then their gradient
+constexpr int S_X = S_RAW + 2 * RAW;      // X unless XG
+constexpr int S_MEAN = S_X + (XG ? 0 : NX);  // [HW][TS] mean or logits, then their gradient
 constexpr int S_VAL = S_MEAN + HW * TS;   // value, then its gradient
 constexpr int S_PG = S_VAL + TS;
 constexpr int S_VF = S_PG + TS;
@@ -613,6 +635,12 @@ DEV void block_body(int block_id, int grid, float* sm,
                     float* __restrict__ partial, const PPODims& dm) {
     uint16_t* wb = reinterpret_cast<uint16_t*>(sm);
     float* G = GG ? partial + (long)block_id * P : sm + S_G;
+    // The V and X regions: in shared memory, or (XG) in this block's slice
+    // of the scratch, which starts past the partial buffer on 16 bytes.
+    float* const vs = XG ? partial + ((long)grid * P + 3) / 4 * 4
+                               + (long)block_id * SCRATCH
+                         : sm + S_V;
+    float* const xs = XG ? vs + NV : sm + S_X;
     // The trunk weights as the products read them.
     const auto w1 = [&] {
         if constexpr (WG) return BWG{pr.p[0], OD, H};
@@ -646,13 +674,13 @@ DEV void block_body(int block_id, int grid, float* sm,
             const int k = i / WS, j = i - k * WS;
             wb[WB_W2 + i] = bf16_bits(k < H && j < H ? pr.p[2][k * H + j] : 0.f);
         }
-        for (int i = tid; i < H * HW; i += NT) sm[S_WM + i] = pr.p[4][i];
+        for (int i = tid; i < H * HW; i += NT) vs[V_WM + i] = pr.p[4][i];
         for (int i = tid; i < HP; i += NT) {
             const bool in = i < H;
-            sm[S_B1 + i] = in ? pr.p[1][i] : 0.f;
-            sm[S_B2 + i] = in ? pr.p[3][i] : 0.f;
-            sm[S_BV + i] = in ? pr.p[8][i] : 0.f;
-            sm[S_WV2 + i] = in ? pr.p[9][i] : 0.f;
+            vs[V_B1 + i] = in ? pr.p[1][i] : 0.f;
+            vs[V_B2 + i] = in ? pr.p[3][i] : 0.f;
+            vs[V_BV + i] = in ? pr.p[8][i] : 0.f;
+            vs[V_WV2 + i] = in ? pr.p[9][i] : 0.f;
         }
         for (int i = tid; i < HW; i += NT) {
             sm[S_BM + i] = pr.p[5][i];
@@ -687,21 +715,21 @@ DEV void block_body(int block_id, int grid, float* sm,
             tc_product<T, HP, ODP>(
                 tid, ACols{raw, RS}, w1,
                 [&](int s, int j, float acc) {
-                    sm[S_X1 + s * XS + j] = tanhf(acc + sm[S_B1 + j]);
+                    xs[X1 + s * XS + j] = tanhf(acc + vs[V_B1 + j]);
                 });
             tc_product<T, HP, ODP>(
                 tid, ACols{raw, RS}, wv,
                 [&](int s, int j, float acc) {
-                    sm[S_XV + s * XS + j] = tanhf(acc + sm[S_BV + j]);
+                    xs[XV + s * XS + j] = tanhf(acc + vs[V_BV + j]);
                 });
         PHASE_END
 
         // h2 = tanh(h1_b W2b + b2); value = hv Wv2 + bv2
         PHASE_BEGIN
             tc_product<T, HP, HP>(
-                tid, ARows{sm + S_X1, XS}, w2,
+                tid, ARows{xs + X1, XS}, w2,
                 [&](int s, int j, float acc) {
-                    sm[S_X2 + s * XS + j] = tanhf(acc + sm[S_B2 + j]);
+                    xs[X2 + s * XS + j] = tanhf(acc + vs[V_B2 + j]);
                 });
         PHASE_END
 
@@ -710,14 +738,14 @@ DEV void block_body(int block_id, int grid, float* sm,
             thread_sums(
                 tid, HW * T, H,
                 [&](int j, int i) {
-                    return sm[S_WM + j * HW + i / T] * sm[S_X2 + (i % T) * XS + j];
+                    return vs[V_WM + j * HW + i / T] * xs[X2 + (i % T) * XS + j];
                 },
                 [&](int i, float v) {
                     sm[S_MEAN + (i / T) * TS + i % T] = v + sm[S_BM + i / T];
                 });
             thread_sums(
                 tid, T, H,
-                [&](int j, int s) { return sm[S_WV2 + j] * sm[S_XV + s * XS + j]; },
+                [&](int j, int s) { return vs[V_WV2 + j] * xs[XV + s * XS + j]; },
                 [&](int s, float v) { sm[S_VAL + s] = v + sm[S_BV2]; });
         PHASE_END
 
@@ -730,12 +758,12 @@ DEV void block_body(int block_id, int grid, float* sm,
             thread_sums(
                 tid, H * HW, T,
                 [&](int s, int i) {
-                    return sm[S_X2 + s * XS + i / HW] * sm[S_MEAN + (i % HW) * TS + s];
+                    return xs[X2 + s * XS + i / HW] * sm[S_MEAN + (i % HW) * TS + s];
                 },
                 [&](int i, float v) { G[G_WM + i] += v; });
             thread_sums(
                 tid, H, T,
-                [&](int s, int j) { return sm[S_XV + s * XS + j] * sm[S_VAL + s]; },
+                [&](int s, int j) { return xs[XV + s * XS + j] * sm[S_VAL + s]; },
                 [&](int j, float v) { G[G_WV2 + j] += v; });
             row_sums(tid, HW, sm + S_MEAN, G + G_BM);
             row_sums(tid, 1, sm + S_VAL, G + G_BV2);
@@ -752,23 +780,23 @@ DEV void block_body(int block_id, int grid, float* sm,
                 if (j < H) {
                     float acc = 0.f;
                     for (int a = 0; a < HW; ++a)
-                        acc += sm[S_WM + j * HW + a] * sm[S_MEAN + a * TS + s];
-                    const float h = sm[S_X2 + s * XS + j];
+                        acc += vs[V_WM + j * HW + a] * sm[S_MEAN + a * TS + s];
+                    const float h = xs[X2 + s * XS + j];
                     dz2 = acc * (1.0f - h * h);
-                    const float hv = sm[S_XV + s * XS + j];
-                    dzv = sm[S_WV2 + j] * sm[S_VAL + s] * (1.0f - hv * hv);
+                    const float hv = xs[XV + s * XS + j];
+                    dzv = vs[V_WV2 + j] * sm[S_VAL + s] * (1.0f - hv * hv);
                 }
-                sm[S_X2 + s * XS + j] = dz2;
-                sm[S_XV + s * XS + j] = dzv;
+                xs[X2 + s * XS + j] = dz2;
+                xs[XV + s * XS + j] = dzv;
             }
         PHASE_END
 
         // db2, dbv; dW2 += h1_b' dz2_b
         PHASE_BEGIN
-            col_sums(tid, sm + S_X2, G + G_B2);
-            col_sums(tid, sm + S_XV, G + G_BV);
+            col_sums(tid, xs + X2, G + G_B2);
+            col_sums(tid, xs + XV, G + G_BV);
             tc_product<HP, HP, T>(
-                tid, ACols{sm + S_X1, XS}, BCols{sm + S_X2, XS},
+                tid, ACols{xs + X1, XS}, BCols{xs + X2, XS},
                 [&](int j, int i, float acc) {
                     if (j < H && i < H) G[G_W2 + j * H + i] += acc;
                 });
@@ -777,23 +805,23 @@ DEV void block_body(int block_id, int grid, float* sm,
         // dz1 = (dz2_b W2b') (1 - h1^2) over h1
         PHASE_BEGIN
             tc_product<T, HP, HP>(
-                tid, ARows{sm + S_X2, XS}, w2t,
+                tid, ARows{xs + X2, XS}, w2t,
                 [&](int s, int j, float acc) {
-                    const float h = sm[S_X1 + s * XS + j];
-                    sm[S_X1 + s * XS + j] = acc * (1.0f - h * h);
+                    const float h = xs[X1 + s * XS + j];
+                    xs[X1 + s * XS + j] = acc * (1.0f - h * h);
                 });
         PHASE_END
 
         // db1; dW1 += obs_b' dz1_b; dWv += obs_b' dzv_b
         PHASE_BEGIN
-            col_sums(tid, sm + S_X1, G + G_B1);
+            col_sums(tid, xs + X1, G + G_B1);
             tc_product<ODP, HP, T>(
-                tid, ARows{raw, RS}, BCols{sm + S_X1, XS},
+                tid, ARows{raw, RS}, BCols{xs + X1, XS},
                 [&](int k, int j, float acc) {
                     if (k < OD && j < H) G[G_W1 + k * H + j] += acc;
                 });
             tc_product<ODP, HP, T>(
-                tid, ARows{raw, RS}, BCols{sm + S_XV, XS},
+                tid, ARows{raw, RS}, BCols{xs + XV, XS},
                 [&](int k, int j, float acc) {
                     if (k < OD && j < H) G[G_WV + k * H + j] += acc;
                 });
@@ -847,10 +875,13 @@ __global__ void ppo_reduce_kernel(const float* __restrict__ partial, int grid,
 // for the wrapper to hold against its own arithmetic.
 extern "C" int vmt_ppo_p() { return P; }
 extern "C" int vmt_ppo_smem_bytes() { return SMEM_BYTES; }
+extern "C" int vmt_ppo_scratch_floats() { return SCRATCH; }
 
 #ifdef __CUDACC__
 // One minibatch: `grid` blocks write their sums to partial [grid, P], then
-// out [P] gets their sum.  Returns the CUDA error of the launches (0: none).
+// out [P] gets their sum.  With PPO_XG=1 the buffer holds, from float
+// up4(grid * P) on, grid slices of vmt_ppo_scratch_floats() more.
+// Returns the CUDA error of the launches (0: none).
 extern "C" int vmt_ppo_update(const float* packed, const int* perm,
                               const float* stats, const PPOParams* params,
                               float* partial, float* out, const PPODims* dims,

@@ -1,27 +1,41 @@
 """RL Environment front end.
 
 PyTorch counterpart of ``vectorizedmultiagentsimulator_tpu/environment/
-environment.py`` (reference ``vmas/simulator/environment/environment.py``),
-without rendering or wrappers.  PyTorch runs eagerly, so ``step`` /
-``reset`` / ``reset_at`` act on the world's state directly; randomness
-comes from the world's ``torch.Generator``, seeded from ``seed``.  Nothing
-in ``step`` copies between host and device or waits for the device.
+environment.py`` (reference ``vmas/simulator/environment/environment.py``).
+PyTorch runs eagerly, so ``step`` / ``reset`` / ``reset_at`` act on the
+world's state directly; randomness comes from the world's
+``torch.Generator``, seeded from ``seed``.  Nothing in ``step`` copies
+between host and device or waits for the device.
+
+``render`` copies env ``env_index``'s row of every state field, every
+extras buffer and (with ``render_sensors``) every LIDAR's distances from
+the device in one copy, binds the world to that one-env state on the host
+while the scenario, its entities and sensors build their geoms, and draws
+them with the numpy rasterizer (``render/``).  A frame's cost does not grow
+with ``num_envs``; it draws no random numbers and leaves the state as it
+was.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from vectorizedmultiagentsimulator_tpu_torch.core.entities import Agent
+from vectorizedmultiagentsimulator_tpu_torch.core.state import WorldState
 from vectorizedmultiagentsimulator_tpu_torch.environment import spaces
 from vectorizedmultiagentsimulator_tpu_torch.ops import physics_cuda
 from vectorizedmultiagentsimulator_tpu_torch.scenario import BaseScenario
 from vectorizedmultiagentsimulator_tpu_torch.utils import (
     AGENT_OBS_TYPE,
+    ALPHABET,
+    STATE_FIELDS,
+    X,
+    Y,
     env_index_to_mask,
+    host_copy,
     resolve_device,
 )
 
@@ -29,7 +43,10 @@ Tensor = torch.Tensor
 
 
 class Environment:
-    metadata = {"runtime.vectorized": True}
+    metadata = {
+        "render.modes": ["human", "rgb_array"],
+        "runtime.vectorized": True,
+    }
 
     def __init__(
         self,
@@ -77,6 +94,10 @@ class Environment:
 
         self.action_space = self.get_action_space()
         self.observation_space = self.get_observation_space(observations)
+
+        # rendering
+        self.viewer = None
+        self.text_lines = None
 
     @property
     def steps(self) -> Tensor:
@@ -519,3 +540,244 @@ class Environment:
                     c.shape, generator=self.world.generator, device=self.device
                 ) * agent.c_noise
             agent.action.c = c
+
+    # ------------------------------------------------------------------ #
+    # Rendering (environment.py:751-1015, numpy rasterizer backend)
+    # ------------------------------------------------------------------ #
+    def render(
+        self,
+        mode: str = "human",
+        env_index: int = 0,
+        agent_index_focus: Optional[int] = None,
+        visualize_when_rgb: bool = False,
+        plot_position_function: Optional[Callable] = None,
+        plot_position_function_precision: float = 0.01,
+        plot_position_function_range=None,
+        plot_position_function_cmap_range=None,
+        plot_position_function_cmap_alpha: float = 1.0,
+        plot_position_function_cmap_name: str = "viridis",
+        render_sensors: bool = False,
+    ):
+        """A frame of env ``env_index``: an ``[H, W, 3]`` uint8 array with
+        ``mode="rgb_array"``, else shown through matplotlib.  The arguments
+        are the JAX package's; ``render_sensors`` also draws every LIDAR's
+        rays, as the reference's ``Agent.render`` does (the JAX package's
+        frames draw none)."""
+        self._check_batch_index(env_index)
+        assert mode in self.metadata["render.modes"]
+        if agent_index_focus is not None:
+            assert 0 <= agent_index_focus < self.n_agents
+
+        from vectorizedmultiagentsimulator_tpu_torch.render import Viewer
+
+        if self.viewer is None:
+            self.viewer = Viewer(*self.scenario.viewer_size)
+            self._init_text_lines()
+        if self.scenario.viewer_zoom <= 0:
+            raise ValueError("Scenario viewer zoom must be > 0")
+
+        lidars = ([x for a in self.world.agents for x in a.sensors
+                   if getattr(x, "rendering", False)]
+                  if render_sensors else [])
+        frame_state, measurements = self._frame_state(env_index, lidars)
+        live = self.world.state
+        self.world.bind(frame_state)
+        try:
+            self._draw_frame(
+                agent_index_focus, plot_position_function,
+                plot_position_function_precision, plot_position_function_range,
+                plot_position_function_cmap_range,
+                plot_position_function_cmap_alpha,
+                plot_position_function_cmap_name)
+            for lidar, meas in zip(lidars, measurements):
+                self.viewer.add_onetime_list(lidar.render(0, meas))
+        finally:
+            self.world.bind(live)
+        return self.viewer.render(return_rgb_array=mode == "rgb_array")
+
+    def _frame_state(self, env_index: int, lidars):
+        """Env ``env_index``'s row of every state field and extras buffer,
+        and the distances of each of ``lidars`` measured from the current
+        state, copied from the device in one copy: ``(a one-env WorldState
+        on the host, [numpy [n_rays] per LIDAR])``."""
+        s = self.world.state
+        keys = list(s.extras)
+        # The LIDARs' casts as a step leaves them where they are current
+        # (World.measure_lidar), else cast now.
+        rows = [getattr(s, f)[env_index:env_index + 1] for f in STATE_FIELDS]
+        rows += [s.extras[k][env_index:env_index + 1] for k in keys]
+        rows += [lidar.measure()[env_index:env_index + 1] for lidar in lidars]
+        values = host_copy(rows)
+        n_fields = len(STATE_FIELDS)
+        state = WorldState(**dict(zip(STATE_FIELDS, values[:n_fields])))
+        state.extras = dict(zip(keys, values[n_fields:n_fields + len(keys)]))
+        measurements = [v[0].numpy() for v in values[n_fields + len(keys):]]
+        return state, measurements
+
+    def _draw_frame(self, agent_index_focus, plot_position_function,
+                    precision, prange, cmap_range, cmap_alpha, cmap_name):
+        """Set the camera and queue the frame's geoms, the world bound to a
+        one-env host state (env 0): the JAX package's ``render`` body."""
+        from vectorizedmultiagentsimulator_tpu_torch.render import (
+            render_function_util,
+        )
+
+        self._set_agent_comm_messages(0)
+        zoom = self.scenario.viewer_zoom
+        aspect = self.scenario.viewer_size[X] / self.scenario.viewer_size[Y]
+        if aspect < 1:
+            cam_range = np.array([zoom, zoom / aspect])
+        else:
+            cam_range = np.array([zoom * aspect, zoom])
+
+        if agent_index_focus is None:
+            all_poses = np.stack(
+                [np.asarray(agent.state.pos)[0] for agent in self.world.agents]
+            )
+            max_agent_radius = max(
+                agent.shape.circumscribed_radius()
+                for agent in self.world.agents
+            )
+            origin = np.asarray(self.scenario.render_origin)
+            viewer_size_fit = (
+                np.array(
+                    [
+                        np.max(np.abs(all_poses[:, X] - origin[X])),
+                        np.max(np.abs(all_poses[:, Y] - origin[Y])),
+                    ]
+                )
+                + 2 * max_agent_radius
+            )
+            viewer_size = np.maximum(viewer_size_fit / cam_range, zoom)
+            cam_range = cam_range * np.max(viewer_size)
+            self.viewer.set_bounds(
+                -cam_range[X] + origin[X],
+                cam_range[X] + origin[X],
+                -cam_range[Y] + origin[Y],
+                cam_range[Y] + origin[Y],
+            )
+        else:
+            pos = np.asarray(self.agents[agent_index_focus].state.pos)[0]
+            self.viewer.set_bounds(
+                pos[X] - cam_range[X],
+                pos[X] + cam_range[X],
+                pos[Y] - cam_range[Y],
+                pos[Y] + cam_range[Y],
+            )
+
+        if self.scenario.visualize_semidims:
+            self._plot_boundary()
+        if self.scenario.plot_grid:
+            self._plot_grid()
+        if plot_position_function is not None:
+            if prange is None:
+                xmin, xmax, ymin, ymax = self.viewer.bounds
+                prange = ((xmin, xmax), (ymin, ymax))
+            elif isinstance(prange, (int, float)):
+                prange = ((-prange, prange), (-prange, prange))
+            elif isinstance(prange[0], (int, float)):
+                prange = ((-prange[0], prange[0]), (-prange[1], prange[1]))
+            self.viewer.add_onetime(
+                render_function_util(plot_position_function, precision,
+                                     prange, cmap_range, cmap_alpha,
+                                     cmap_name)
+            )
+        self.viewer.add_onetime_list(self.scenario.extra_render(0))
+        for entity in self.world.entities:
+            self.viewer.add_onetime_list(entity.render(env_index=0))
+
+    def plot_function(
+        self, f, precision, plot_range, cmap_range, cmap_alpha, cmap_name
+    ):
+        """A heatmap geom of ``f`` over ``plot_range`` (reference
+        environment.py:990-1014); with ``plot_range=None`` the viewer's
+        bounds (render once first).  Add it with ``env.viewer.add_onetime``,
+        or use :meth:`render`'s ``plot_position_function`` arguments."""
+        from vectorizedmultiagentsimulator_tpu_torch.render import (
+            render_function_util,
+        )
+
+        if plot_range is None:
+            assert (
+                self.viewer is not None and self.viewer.bounds is not None
+            ), "Set viewer bounds before plotting"
+            x_min, x_max, y_min, y_max = self.viewer.bounds
+            plot_range = (
+                [x_min - precision, x_max - precision],
+                [y_min - precision, y_max + precision],
+            )
+        return render_function_util(
+            f, precision, plot_range, cmap_range, cmap_alpha, cmap_name
+        )
+
+    def _init_text_lines(self):
+        """One screen-space text line per speaking agent for comm-message
+        overlays (reference environment.py:1023-1031)."""
+        from vectorizedmultiagentsimulator_tpu_torch.render import TextLine
+
+        self.text_lines = []
+        if self.world.dim_c > 0:
+            idx = 0
+            for agent in self.world.agents:
+                if not agent.silent:
+                    text_line = TextLine(y=idx * 40)
+                    self.viewer.geoms.append(text_line)
+                    self.text_lines.append(text_line)
+                    idx += 1
+
+    def _set_agent_comm_messages(self, env_index: int):
+        """Comm utterances as text (reference environment.py:1033-1055)."""
+        if self.world.dim_c == 0 or not self.text_lines:
+            return
+        idx = 0
+        for agent in self.world.agents:
+            if agent.silent:
+                continue
+            c = np.asarray(agent.state.c)[env_index]
+            if self.continuous_actions:
+                word = "[" + ",".join(f"{comm:.2f}" for comm in c) + "]"
+            else:
+                word = ALPHABET[int(np.argmax(c))]
+            self.text_lines[idx].set_text(f"{agent.name} sends {word}   ")
+            idx += 1
+
+    def _plot_grid(self):
+        """Background grid (reference rendering.py Grid)."""
+        from vectorizedmultiagentsimulator_tpu_torch.render import Segment
+
+        xmin, xmax, ymin, ymax = self.viewer.bounds or (-1.2, 1.2, -1.2, 1.2)
+        spacing = float(self.scenario.grid_spacing) or 0.1
+        x = math.floor(xmin / spacing) * spacing
+        while x <= xmax:
+            seg = Segment(start=(x, ymin), end=(x, ymax), width=0.002)
+            seg.set_color(0.8, 0.8, 0.8)
+            self.viewer.add_onetime(seg)
+            x += spacing
+        y = math.floor(ymin / spacing) * spacing
+        while y <= ymax:
+            seg = Segment(start=(xmin, y), end=(xmax, y), width=0.002)
+            seg.set_color(0.8, 0.8, 0.8)
+            self.viewer.add_onetime(seg)
+            y += spacing
+
+    def _plot_boundary(self):
+        from vectorizedmultiagentsimulator_tpu_torch.render import Segment
+
+        if self.world.x_semidim is not None or self.world.y_semidim is not None:
+            infinite = 100
+            x_semi = (self.world.x_semidim
+                      if self.world.x_semidim is not None else infinite)
+            y_semi = (self.world.y_semidim
+                      if self.world.y_semidim is not None else infinite)
+            corners = [
+                (-x_semi, y_semi),
+                (x_semi, y_semi),
+                (x_semi, -y_semi),
+                (-x_semi, -y_semi),
+            ]
+            for i in range(4):
+                seg = Segment(
+                    start=corners[i], end=corners[(i + 1) % 4], width=0.005
+                )
+                seg.set_color(0.25, 0.25, 0.25)
+                self.viewer.add_onetime(seg)

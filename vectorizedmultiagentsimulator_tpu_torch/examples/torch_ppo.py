@@ -8,8 +8,9 @@ loss and backward of one minibatch in one launch over a feature-major packed
 rollout, the epoch shuffle folded into its block indices); with
 ``fused_update=False``, an f32 trunk, or a minibatch the shuffle block does
 not divide, the update goes through ``loss_fn`` and autograd instead (as in
-the JAX example); asked for the kernel with a hidden size it does not take,
-``init_training`` raises.
+the JAX example); the kernel takes any hidden size, and asked for it with
+packed rows it does not take (more than about 1,200), ``init_training``
+raises.
 
 Agents share one actor-critic MLP; each agent's transition is a training
 sample.  Heterogeneous scenarios are handled as in the JAX package:
@@ -67,7 +68,7 @@ class PPOConfig(NamedTuple):
     # The fused minibatch update (ops/ppo_update_cuda.py).  Falls back to
     # loss_fn and autograd with an f32 trunk or with shapes the block size
     # does not divide (Trainer.fused says which path a trainer runs); a
-    # hidden size the kernel does not take raises when the trainer is built.
+    # spec the kernel does not take raises when the trainer is built.
     fused_update: bool = True
     fused_block: int = 4096  # samples per shuffle block
 

@@ -1,5 +1,6 @@
 from vectorizedmultiagentsimulator_tpu_torch.models.heuristic_policy import (
     BaseHeuristicPolicy,
+    RandomPolicy,
 )
 
-__all__ = ["BaseHeuristicPolicy"]
+__all__ = ["BaseHeuristicPolicy", "RandomPolicy"]

@@ -14,9 +14,10 @@ Replaces the JAX package's Pallas kernel
   product;
 * ``update_supported(spec)``: whether the kernel takes a spec: a trunk too
   wide for its gradient sums (from about hidden 160), then for its bf16
-  weights (from about 260), to share a block's shared memory keeps them in
-  device memory; only a trunk whose activation tiles alone overflow a
-  block (past hidden 1,040 at obs_d 15) is refused;
+  weights (from about 260), then for its fp32 activation tiles (past about
+  1,040 at obs_d 15), to share a block's shared memory keeps them in
+  device memory; only packed rows too many for two raw tiles of 16 samples
+  (more than about 1,200) are refused;
 * ``minibatch_update``: the wrapper.  On CUDA tensors it launches the kernel
   or raises; on CPU tensors it runs ``minibatch_update_plain``.  It returns
   gradients and nothing differentiates through it, so it is no
@@ -301,13 +302,15 @@ def _up16(x: int) -> int:
 
 
 def smem_bytes(spec: PPOUpdateSpec, tile: int, global_sums: bool,
-               global_weights: bool = False) -> int:
+               global_weights: bool = False,
+               global_tiles: bool = False) -> int:
     """Shared memory of one block with ``tile`` samples a tile (the layout
     of csrc/ppo_update.cu): the trunk weights as bf16 rows of ``up16(hidden)
-    + 8`` unless ``global_weights``, the heads' weights and biases, the
-    gradient sums unless ``global_sums``, two raw tiles of ``max(D,
-    up16(obs_d))`` rows of ``tile + 8``, three activation tiles
-    ``[tile][up16(hidden) + 8]`` and the head's rows at a stride of ``tile +
+    + 8`` unless ``global_weights``, the heads' weights and biases (the
+    hidden-size ones unless ``global_tiles``), the gradient sums unless
+    ``global_sums``, two raw tiles of ``max(D, up16(obs_d))`` rows of
+    ``tile + 8``, three activation tiles ``[tile][up16(hidden) + 8]``
+    unless ``global_tiles``, and the head's rows at a stride of ``tile +
     4``."""
     od, aw, H, hw = spec.obs_d, spec.act_w, spec.hidden, spec.mask_w
     hp, odp = _up16(H), _up16(od)
@@ -317,27 +320,50 @@ def smem_bytes(spec: PPOUpdateSpec, tile: int, global_sums: bool,
         floats += _up4(flat_size(spec))
     floats += 2 * max(spec.d, odp) * (tile + 8) + 3 * tile * (hp + 8)
     floats += (tile + 4) * (hw + 4 + (0 if spec.discrete else aw))
+    if global_tiles:
+        floats -= vector_floats(spec) + 3 * tile * (hp + 8)
     return weights + 4 * floats
 
 
+def vector_floats(spec: PPOUpdateSpec) -> int:
+    """Floats of the hidden-size vectors (Wm, Wv2 and the trunk's three
+    biases) as csrc/ppo_update.cu lays them out."""
+    return _up4(spec.hidden * spec.mask_w) + 4 * _up16(spec.hidden)
+
+
+def scratch_floats(spec: PPOUpdateSpec, tile: int,
+                   global_tiles: bool) -> int:
+    """Floats of one block's slice of the device-memory scratch: the
+    hidden-size vectors and three activation tiles with ``global_tiles``,
+    else none."""
+    if not global_tiles:
+        return 0
+    return vector_floats(spec) + 3 * tile * (_up16(spec.hidden) + 8)
+
+
+# (global_sums, global_weights, global_tiles) in the order they are tried.
+_PLACEMENTS = ((False, False, False), (True, False, False),
+               (True, True, False), (True, True, True))
+
+
 def layout(spec: PPOUpdateSpec):
-    """``(tile, global_sums, global_weights)`` the kernel is compiled with
-    for ``spec``: everything in shared memory with the largest tile of
-    ``TILES`` that fits (64 samples up to hidden 112, 32 to 144, 16 to
-    160); else the gradient sums in device memory (to hidden 256); else
-    the trunk weights too, read from device memory (to hidden 1,040 at
-    obs_d 15: three fp32 activation tiles of 16 samples must fit a
-    block)."""
-    for global_sums, global_weights in ((False, False), (True, False),
-                                        (True, True)):
+    """``(tile, global_sums, global_weights, global_tiles)`` the kernel is
+    compiled with for ``spec``: everything in shared memory with the
+    largest tile of ``TILES`` that fits (64 samples up to hidden 112, 32 to
+    144, 16 to 160); else the gradient sums in device memory (to hidden
+    256); else the trunk weights too, read from device memory (to hidden
+    1,040 at obs_d 15, where three fp32 activation tiles of 16 samples
+    still fit a block); else the activation tiles and hidden-size vectors
+    too, in a scratch in device memory, any hidden size.  Only packed rows
+    too many for two raw tiles of 16 samples are refused."""
+    for placement in _PLACEMENTS:
         for tile in TILES:
-            if smem_bytes(spec, tile, global_sums,
-                          global_weights) <= MAX_SMEM_BYTES:
-                return tile, global_sums, global_weights
-    raise ValueError(f"the PPO update kernel does not take {spec}: three"
-                     " activation tiles of 16 samples exceed a block's"
-                     " shared memory; use a smaller hidden size, or"
-                     " fused_update=False for the autograd update")
+            if smem_bytes(spec, tile, *placement) <= MAX_SMEM_BYTES:
+                return (tile,) + placement
+    raise ValueError(f"the PPO update kernel does not take {spec}: two raw"
+                     f" tiles of {spec.d} packed rows and 16 samples exceed"
+                     " a block's shared memory; use fused_update=False for"
+                     " the autograd update")
 
 
 def tile_size(spec: PPOUpdateSpec) -> int:
@@ -352,9 +378,9 @@ def blocks_per_sm(spec: PPOUpdateSpec) -> int:
 
 
 def update_supported(spec: PPOUpdateSpec) -> bool:
-    """Whether the kernel takes this spec: any whose three fp32 activation
-    tiles of 16 samples fit a block's shared memory (hidden sizes up to
-    1,040 at obs_d 15)."""
+    """Whether the kernel takes this spec: any hidden size, with packed
+    rows few enough for two raw tiles of 16 samples in a block's shared
+    memory (up to about 1,200)."""
     try:
         layout(spec)
     except ValueError:
@@ -367,11 +393,11 @@ def require_supported(spec: PPOUpdateSpec) -> None:
 
 
 def defines(spec: PPOUpdateSpec):
-    tile, global_sums, global_weights = layout(spec)
+    tile, global_sums, global_weights, global_tiles = layout(spec)
     return (f"PPO_OD={spec.obs_d}", f"PPO_AW={spec.act_w}",
             f"PPO_H={spec.hidden}", f"PPO_NL={spec.n_logits}",
             f"PPO_T={tile}", f"PPO_GG={int(global_sums)}",
-            f"PPO_WG={int(global_weights)}")
+            f"PPO_WG={int(global_weights)}", f"PPO_XG={int(global_tiles)}")
 
 
 def build(spec: PPOUpdateSpec) -> str:
@@ -395,6 +421,7 @@ class _Launcher(NamedTuple):
     fn: object
     dims: _PPODims
     flat: int
+    scratch: int  # floats of a block's slice of the scratch
 
 
 _launchers = {}
@@ -406,9 +433,12 @@ def _launcher(spec: PPOUpdateSpec, n: int) -> _Launcher:
     key = (spec, n)
     if key not in _launchers:
         lib = ctypes.CDLL(build(spec))
+        tile, *placement = layout(spec)
+        scratch = scratch_floats(spec, tile, placement[2])
         if (lib.vmt_ppo_p() != flat_size(spec)
-                or lib.vmt_ppo_smem_bytes() != smem_bytes(spec,
-                                                          *layout(spec))):
+                or lib.vmt_ppo_smem_bytes() != smem_bytes(spec, tile,
+                                                          *placement)
+                or lib.vmt_ppo_scratch_floats() != scratch):
             raise RuntimeError(
                 "csrc/ppo_update.cu and ops/ppo_update_cuda.py disagree on"
                 " the kernel's layout"
@@ -416,8 +446,16 @@ def _launcher(spec: PPOUpdateSpec, n: int) -> _Launcher:
         fn = lib.vmt_ppo_update
         fn.argtypes = [_P] * 7 + [_I, _P]
         fn.restype = _I
-        _launchers[key] = _Launcher(fn, ppo_dims(spec, n), flat_size(spec))
+        _launchers[key] = _Launcher(fn, ppo_dims(spec, n), flat_size(spec),
+                                    scratch)
     return _launchers[key]
+
+
+def partial_floats(grid: int, flat: int, scratch: int) -> int:
+    """Floats of the buffer the kernel's blocks write: ``grid`` rows of
+    ``flat`` gradient sums, then (from a multiple of 4) ``grid`` slices of
+    ``scratch``."""
+    return _up4(grid * flat) + grid * scratch
 
 
 def split_flat(spec: PPOUpdateSpec, flat: Tensor):
@@ -468,8 +506,9 @@ def launch(spec: PPOUpdateSpec, packed_fm: Tensor, perm_mb: Tensor,
         blocks_per_sm(spec)
         * torch.cuda.get_device_properties(dev).multi_processor_count,
     )
-    partial = torch.empty((grid, launcher.flat), dtype=torch.float32,
-                          device=dev)
+    partial = torch.empty(
+        (partial_floats(grid, launcher.flat, launcher.scratch),),
+        dtype=torch.float32, device=dev)
     flat = torch.empty((launcher.flat,), dtype=torch.float32, device=dev)
     pointers = _PPOParams((_P * 11)(*(p.data_ptr() for p in params)))
     err = launcher.fn(

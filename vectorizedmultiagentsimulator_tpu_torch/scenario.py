@@ -2,7 +2,10 @@
 
 Scenarios subclass :class:`BaseScenario` as in the JAX package:
 ``make_world / reset_world_at / observation / reward`` are compulsory;
-``done / info / process_action / pre_step / post_step`` optional.
+``done / info / extra_render / process_action / pre_step / post_step``
+optional; the viewer attributes (``viewer_size``, ``viewer_zoom``,
+``render_origin``, ``plot_grid``, ``grid_spacing``, ``visualize_semidims``)
+default as in the JAX package.
 ``env_index`` arrives as ``None`` for a full reset or as an int index /
 boolean mask, which the entity setters consume directly.
 
@@ -27,6 +30,8 @@ from vectorizedmultiagentsimulator_tpu_torch.utils import (
     AGENT_INFO_TYPE,
     AGENT_OBS_TYPE,
     AGENT_REWARD_TYPE,
+    INITIAL_VIEWER_SIZE,
+    VIEWER_DEFAULT_ZOOM,
 )
 
 
@@ -35,6 +40,12 @@ class BaseScenario(ABC):
     def __init__(self):
         """Do not override."""
         self._world: Optional[World] = None
+        self.viewer_size = INITIAL_VIEWER_SIZE
+        self.viewer_zoom = VIEWER_DEFAULT_ZOOM
+        self.render_origin = (0.0, 0.0)
+        self.plot_grid = False
+        self.grid_spacing = 0.1
+        self.visualize_semidims = True
 
     # -- dynamic scenario buffers -> state.extras (mirrors Entity trap) -- #
     def __setattr__(self, name: str, value):
@@ -122,6 +133,13 @@ class BaseScenario(ABC):
 
     def process_action(self, agent: Agent):
         return
+
+    def extra_render(self, env_index: int = 0) -> list:
+        """Geoms the scenario draws beside its entities for env
+        ``env_index``.  ``Environment.render`` calls it while the world is
+        bound to a one-env copy of the state on the host (``env_index`` 0
+        there), so the state it reads lies on the CPU."""
+        return []
 
     def pre_step(self):
         return

@@ -18,6 +18,7 @@ from vectorizedmultiagentsimulator_tpu_torch.core import (
 )
 from vectorizedmultiagentsimulator_tpu_torch.scenario import BaseScenario
 from vectorizedmultiagentsimulator_tpu_torch.utils import (
+    Color,
     JOINT_FORCE,
     ScenarioUtils,
     TorchUtils,
@@ -190,3 +191,13 @@ class Scenario(BaseScenario):
             "speed_rew": self.speed_rew,
             "dist_rew": self.dist_rew,
         }
+
+    def extra_render(self, env_index: int = 0):
+        from vectorizedmultiagentsimulator_tpu_torch import render as rendering
+
+        circle = rendering.make_circle(self.desired_radius, filled=False)
+        xform = rendering.Transform()
+        circle.add_attr(xform)
+        xform.set_translation(0, 0)
+        circle.set_color(*Color.BLACK.value)
+        return [circle]

@@ -240,3 +240,13 @@ class Scenario(BaseScenario):
 
     def info(self, agent):
         return {"rot_rew": self.rot_rew, "energy_rew": self.energy_rew}
+
+    def extra_render(self, env_index: int = 0):
+        from vectorizedmultiagentsimulator_tpu_torch import render as rendering
+
+        origin = rendering.make_circle(0.01)
+        xform = rendering.Transform()
+        origin.add_attr(xform)
+        xform.set_translation(0, 0)
+        origin.set_color(*Color.GREEN.value)
+        return [origin]

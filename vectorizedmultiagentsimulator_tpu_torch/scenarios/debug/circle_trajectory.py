@@ -8,6 +8,7 @@ batch-leading, ``[B, dt_delay, 2]``.
 """
 import math
 
+import numpy as np
 import torch
 
 from vectorizedmultiagentsimulator_tpu_torch.controllers import VelocityController
@@ -19,6 +20,7 @@ from vectorizedmultiagentsimulator_tpu_torch.scenarios.give_way import (
     with_noise,
 )
 from vectorizedmultiagentsimulator_tpu_torch.utils import (
+    Color,
     ScenarioUtils,
     TorchUtils,
     X,
@@ -112,8 +114,7 @@ class Scenario(BaseScenario):
         inside_circle = (
             torch.linalg.norm(agent.state.pos, dim=1) < self.desired_radius
         )
-        angle_90 = torch.full((self.world.batch_dim,), math.pi / 2,
-                              device=self.world.device)
+        angle_90 = torch.full_like(agent.state.pos[:, X], math.pi / 2)
         rot_90 = TorchUtils.rotate_vector(distance_to_circle, angle_90)
         rot_neg_90 = TorchUtils.rotate_vector(distance_to_circle, -angle_90)
         rotated = torch.where(inside_circle[:, None], rot_neg_90, rot_90)
@@ -136,3 +137,21 @@ class Scenario(BaseScenario):
 
     def info(self, agent):
         return {"pos_rew": self.pos_rew, "dot_product": self.dot_product}
+
+    def extra_render(self, env_index: int = 0):
+        from vectorizedmultiagentsimulator_tpu_torch import render as rendering
+
+        geoms = []
+        color = Color.BLACK.value
+        circle = rendering.make_circle(self.desired_radius, filled=False)
+        xform = rendering.Transform()
+        circle.add_attr(xform)
+        xform.set_translation(0, 0)
+        circle.set_color(*color)
+        geoms.append(circle)
+
+        tangent = np.asarray(self.get_tangent_to_circle(self._agent))
+        line = rendering.Line((0, 0), tuple(tangent[env_index]), width=0.01)
+        line.set_color(*color)
+        geoms.append(line)
+        return geoms

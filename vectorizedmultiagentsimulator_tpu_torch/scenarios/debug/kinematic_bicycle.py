@@ -82,3 +82,9 @@ class Scenario(BaseScenario):
 
     def observation(self, agent):
         return torch.cat([agent.state.pos, agent.state.vel], dim=-1)
+
+    def extra_render(self, env_index: int = 0):
+        return [
+            ScenarioUtils.plot_entity_rotation(agent, env_index, length=0.1)
+            for agent in self.world.agents
+        ]

@@ -14,7 +14,12 @@ from vectorizedmultiagentsimulator_tpu_torch.scenario import BaseScenario
 from vectorizedmultiagentsimulator_tpu_torch.scenarios.give_way import (
     with_noise,
 )
-from vectorizedmultiagentsimulator_tpu_torch.utils import ScenarioUtils, X, Y
+from vectorizedmultiagentsimulator_tpu_torch.utils import (
+    Color,
+    ScenarioUtils,
+    X,
+    Y,
+)
 
 
 def _safe_normalize(v):
@@ -92,3 +97,10 @@ class Scenario(BaseScenario):
             "dot_product": self.dot_product,
             "steady_rew": self.steady_rew,
         }
+
+    def extra_render(self, env_index: int = 0):
+        from vectorizedmultiagentsimulator_tpu_torch import render as rendering
+
+        line = rendering.Line((0, -1), (0, -1 + self.line_length), width=0.01)
+        line.set_color(*Color.BLACK.value)
+        return [line]

@@ -294,6 +294,36 @@ class Scenario(BaseScenario):
     def done(self):
         return torch.all(self.all_time_covered_targets, dim=-1)
 
+    def extra_render(self, env_index: int = 0):
+        from vectorizedmultiagentsimulator_tpu_torch import render as rendering
+
+        geoms = []
+        for target in self._targets:
+            range_circle = rendering.make_circle(
+                self._covering_range, filled=False
+            )
+            xform = rendering.Transform()
+            xform.set_translation(*np.asarray(target.state.pos)[env_index])
+            range_circle.add_attr(xform)
+            range_circle.set_color(*self.target_color.value)
+            geoms.append(range_circle)
+        for i, agent1 in enumerate(self.world.agents):
+            for j, agent2 in enumerate(self.world.agents):
+                if j <= i:
+                    continue
+                agent_dist = torch.linalg.norm(
+                    agent1.state.pos - agent2.state.pos, dim=-1
+                )
+                if float(agent_dist[env_index]) <= self._comms_range:
+                    line = rendering.Line(
+                        tuple(np.asarray(agent1.state.pos)[env_index]),
+                        tuple(np.asarray(agent2.state.pos)[env_index]),
+                        width=0.005,
+                    )
+                    line.set_color(*Color.BLACK.value)
+                    geoms.append(line)
+        return geoms
+
 
 class HeuristicPolicy(BaseHeuristicPolicy):
     """Circle sweep with target attraction and agent repulsion

@@ -5,7 +5,8 @@ The per-landmark buffers (``eaten``, ``just_eaten``, ``how_many_on_food``)
 are tensors stored on the entities (``state.extras``); the reference's
 per-env branching is written with ``where`` masks, as in the JAX package.
 ``is_rendering`` (an eaten food is no longer drawn) is kept as that package
-keeps it, so its state loads here as it is; the port has no renderer yet.
+keeps it, so its state loads here as it is and a frame leaves eaten food
+out.
 """
 import torch
 

@@ -20,8 +20,9 @@ same state layout, so a JAX state carries across key for key:
   per step for the planner's samples (``planner_normals``), and for the
   decision / precision noise when those strengths are not 1.
 
-Drawing (``extra_render``, the background) waits for the port's renderer
-(ROADMAP Queue 1, wrappers and edges: render).
+``extra_render`` draws the pitch (its geoms built at the first frame and
+kept), the blue agents' index labels and, with shooting, each blue agent's
+cone and kick bar.
 """
 from typing import Dict, List
 
@@ -144,6 +145,7 @@ class Scenario(BaseScenario):
         )
         self.right_goal_pos = -self.left_goal_pos
         self._render_field = True
+        self._background = None  # the pitch's geoms, made at the first frame
 
         self._reset_agent_range = const(
             [self.pitch_length / 2, self.pitch_width]
@@ -1002,6 +1004,107 @@ class Scenario(BaseScenario):
                 <= self.agent_size + self.ball_size + 1e-2
             )
         return info
+
+    def _background_geoms(self):
+        """The pitch's geoms (reference football.py:1486-1526), built at the
+        first frame and kept: they do not move."""
+        from vectorizedmultiagentsimulator_tpu_torch import render as rendering
+
+        if self._background is not None:
+            return self._background
+        w, length, a = self.pitch_width, self.pitch_length, self.agent_size
+        specs = [
+            ("box", (length, w), Color.GREEN, (0.0, 0.0), 0.0),
+            ("circle", self.goal_size / 2, Color.WHITE, (0.0, 0.0), 0.0),
+            ("circle", self.goal_size / 2 - 0.02, Color.GREEN, (0.0, 0.0),
+             0.0),
+            ("line", w - 2 * a, Color.WHITE, (0.0, 0.0), np.pi / 2),
+            ("line", w - 2 * a, Color.WHITE, (length / 2 - a, 0.0),
+             np.pi / 2),
+            ("line", w - 2 * a, Color.WHITE, (-length / 2 + a, 0.0),
+             np.pi / 2),
+            ("line", length - 2 * a, Color.WHITE, (0.0, w / 2 - a), 0.0),
+            ("line", length - 2 * a, Color.WHITE, (0.0, -w / 2 + a), 0.0),
+        ]
+        self._background = []
+        for kind, size, color, pos, rot in specs:
+            if kind == "box":
+                box_length, box_width = size
+                g = rendering.make_polygon(
+                    [
+                        (-box_length / 2, -box_width / 2),
+                        (-box_length / 2, box_width / 2),
+                        (box_length / 2, box_width / 2),
+                        (box_length / 2, -box_width / 2),
+                    ]
+                )
+            elif kind == "circle":
+                g = rendering.make_circle(size)
+            else:
+                g = rendering.make_line(size)
+            xform = rendering.Transform()
+            g.add_attr(xform)
+            xform.set_translation(*pos)
+            xform.set_rotation(rot)
+            g.set_color(*color.value)
+            self._background.append(g)
+        return self._background
+
+    def extra_render(self, env_index: int = 0):
+        from vectorizedmultiagentsimulator_tpu_torch import render as rendering
+
+        background = self._background_geoms()
+        geoms = list(background if self._render_field else background[3:])
+
+        # Blue-agent index labels (reference football.py:1528-1531).
+        geoms += ScenarioUtils.render_agent_indices(
+            self,
+            env_index,
+            start_from=1,
+            exclude=self.red_agents + [self.ball],
+        )
+
+        # Shooting cone + kick-intensity bar (reference football.py:1533-1568).
+        if self.enable_shooting:
+            for agent in self.blue_agents:
+                color = agent.color
+                within = bool(
+                    np.asarray(agent.ball_within_angle)[env_index]
+                ) and bool(np.asarray(agent.ball_within_range)[env_index])
+                sector_color = Color.PINK.value if within else color
+                pos = tuple(np.asarray(agent.state.pos)[env_index])
+                rot = float(np.asarray(agent.state.rot)[env_index, 0])
+
+                sector = rendering.make_circle(
+                    radius=self.shooting_radius,
+                    angle=self.shooting_angle,
+                    filled=True,
+                )
+                xform = rendering.Transform()
+                xform.set_rotation(rot)
+                xform.set_translation(*pos)
+                sector.add_attr(xform)
+                sector.set_color(*sector_color[:3], alpha=0.5 / 2)
+                geoms.append(sector)
+
+                shoot_intensity = float(
+                    np.linalg.norm(np.asarray(agent.shoot_force)[env_index])
+                ) / (self.u_shoot_multiplier * 2)
+                l, r, t, b = (
+                    0,
+                    self.shooting_radius * shoot_intensity,
+                    self.agent_size / 2,
+                    -self.agent_size / 2,
+                )
+                bar = rendering.make_polygon([(l, b), (l, t), (r, t), (r, b)])
+                xform = rendering.Transform()
+                xform.set_rotation(rot)
+                xform.set_translation(*pos)
+                bar.add_attr(xform)
+                bar.set_color(*color[:3], alpha=0.5)
+                geoms.append(bar)
+
+        return geoms
 
 
 # ---------------------------------------------------------------------- #

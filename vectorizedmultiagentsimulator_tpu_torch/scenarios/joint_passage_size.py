@@ -11,6 +11,7 @@ passage_slots``), and the start angle +-pi/2 is drawn per env.
 """
 import math
 
+import numpy as np
 import torch
 
 from vectorizedmultiagentsimulator_tpu_torch.controllers import VelocityController
@@ -35,6 +36,7 @@ from vectorizedmultiagentsimulator_tpu_torch.utils import (
     Color,
     ScenarioUtils,
     TorchUtils,
+    X,
     Y,
 )
 
@@ -563,3 +565,22 @@ class Scenario(BaseScenario):
                 "passed": just_passed.to(torch.int32),
             }
         return self._info_stored
+
+    def extra_render(self, env_index: int = 0):
+        from vectorizedmultiagentsimulator_tpu_torch import render as rendering
+
+        geoms = []
+        color = self._goal.color
+        goal_pos = np.asarray(self._goal.state.pos)[env_index]
+        goal_rot = float(np.asarray(self._goal.state.rot)[env_index, 0])
+        for sgn, radius in ((-1, self.agent_radius), (1, self.agent_radius_2)):
+            circ = rendering.make_circle(radius)
+            xform = rendering.Transform()
+            circ.add_attr(xform)
+            xform.set_translation(
+                goal_pos[X] + sgn * self.joint_length / 2 * math.cos(goal_rot),
+                goal_pos[Y] + sgn * self.joint_length / 2 * math.sin(goal_rot),
+            )
+            circ.set_color(*color[:3])
+            geoms.append(circ)
+        return geoms

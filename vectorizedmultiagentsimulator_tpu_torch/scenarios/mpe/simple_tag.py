@@ -4,6 +4,8 @@ Predator-prey: slow adversaries chase faster good agents among collidable
 landmark obstacles (10 substeps, collision_force 500).  A collision gives
 +-10; distance shaping and a respawn at a catch are options.
 """
+import math
+
 import torch
 
 from vectorizedmultiagentsimulator_tpu_torch.core import (
@@ -212,3 +214,22 @@ class Scenario(BaseScenario):
             ],
             dim=-1,
         )
+
+    def extra_render(self, env_index: int = 0):
+        from vectorizedmultiagentsimulator_tpu_torch import render as rendering
+
+        geoms = []
+        length = 2 * (self.bound + self.adversary_radius)
+        offset = self.bound + self.adversary_radius
+        for i in range(4):
+            geom = rendering.make_line(length)
+            xform = rendering.Transform()
+            geom.add_attr(xform)
+            xform.set_translation(
+                0.0 if i % 2 else (offset if i == 0 else -offset),
+                0.0 if not i % 2 else (offset if i == 1 else -offset),
+            )
+            xform.set_rotation(math.pi / 2 if not i % 2 else 0.0)
+            geom.set_color(*Color.BLACK.value)
+            geoms.append(geom)
+        return geoms

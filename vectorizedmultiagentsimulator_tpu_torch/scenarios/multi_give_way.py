@@ -9,6 +9,7 @@ reset and wherever an agent's command is 0.
 """
 import math
 
+import numpy as np
 import torch
 
 from vectorizedmultiagentsimulator_tpu_torch.controllers import VelocityController
@@ -285,3 +286,24 @@ class Scenario(BaseScenario):
             landmark.set_pos(self._long_pos[i], batch_index=env_index)
             if i >= 4:
                 landmark.set_rot(self._upright, batch_index=env_index)
+
+    def extra_render(self, env_index: int = 0):
+        from vectorizedmultiagentsimulator_tpu_torch import render as rendering
+
+        geoms = []
+        for i, agent1 in enumerate(self.world.agents):
+            for j, agent2 in enumerate(self.world.agents):
+                if j <= i:
+                    continue
+                agent_dist = torch.linalg.norm(
+                    agent1.state.pos - agent2.state.pos, dim=-1
+                )
+                if float(agent_dist[env_index]) <= self.comms_range:
+                    line = rendering.Line(
+                        tuple(np.asarray(agent1.state.pos)[env_index]),
+                        tuple(np.asarray(agent2.state.pos)[env_index]),
+                        width=0.005,
+                    )
+                    line.set_color(*Color.BLACK.value)
+                    geoms.append(line)
+        return geoms

@@ -21,6 +21,7 @@ from vectorizedmultiagentsimulator_tpu_torch.models import BaseHeuristicPolicy
 from vectorizedmultiagentsimulator_tpu_torch.scenario import BaseScenario
 from vectorizedmultiagentsimulator_tpu_torch.sensors import Lidar
 from vectorizedmultiagentsimulator_tpu_torch.utils import (
+    Color,
     ScenarioUtils,
     TorchUtils,
     X,
@@ -271,6 +272,27 @@ class Scenario(BaseScenario):
             "final_rew": self.final_rew,
             "agent_collisions": agent.agent_collision_rew,
         }
+
+    def extra_render(self, env_index: int = 0):
+        from vectorizedmultiagentsimulator_tpu_torch import render as rendering
+
+        geoms = []
+        for i, agent1 in enumerate(self.world.agents):
+            for j, agent2 in enumerate(self.world.agents):
+                if j <= i:
+                    continue
+                agent_dist = torch.linalg.norm(
+                    agent1.state.pos - agent2.state.pos, dim=-1
+                )
+                if float(agent_dist[env_index]) <= self.comms_range:
+                    line = rendering.Line(
+                        tuple(np.asarray(agent1.state.pos)[env_index]),
+                        tuple(np.asarray(agent2.state.pos)[env_index]),
+                        width=0.005,
+                    )
+                    line.set_color(*Color.BLACK.value)
+                    geoms.append(line)
+        return geoms
 
 
 class HeuristicPolicy(BaseHeuristicPolicy):

@@ -8,6 +8,8 @@ places are permutations drawn per env (the reference draws one for the
 whole batch with python's ``randperm``): here the ranks of uniform draws
 from the world's generator, the same distribution.
 """
+import math
+
 import torch
 
 from vectorizedmultiagentsimulator_tpu_torch.core import (
@@ -225,3 +227,22 @@ class Scenario(BaseScenario):
             ),
             dim=1,
         )
+
+    def extra_render(self, env_index: int = 0):
+        from vectorizedmultiagentsimulator_tpu_torch import render as rendering
+
+        geoms = []
+        length = 2 + self.agent_radius * 2
+        offset = self.world.x_semidim + self.agent_radius
+        for i in range(4):
+            geom = rendering.make_line(length)
+            xform = rendering.Transform()
+            geom.add_attr(xform)
+            xform.set_translation(
+                0.0 if i % 2 else (offset if i == 0 else -offset),
+                0.0 if not i % 2 else (offset if i == 1 else -offset),
+            )
+            xform.set_rotation(math.pi / 2 if not i % 2 else 0.0)
+            geom.set_color(*Color.BLACK.value)
+            geoms.append(geom)
+        return geoms

@@ -43,8 +43,9 @@ and keeps the first that is clear, or the last, as the JAX package keeps
 its last proposal when it gives up.  Give-ups are added to the device
 tensor ``world.spawn_give_ups``.  No reset and no step reads the device.
 
-Not ported yet: ``extra_render`` (the renderer, ROADMAP Queue 1, wrappers
-and edges).
+``extra_render`` draws the lanelets' boundaries (segments built from
+``map_data`` at the first frame and kept) and each agent's short-term
+reference path.
 """
 import math
 
@@ -60,6 +61,7 @@ from vectorizedmultiagentsimulator_tpu_torch.scenarios import (
     road_traffic_map as rtm,
 )
 from vectorizedmultiagentsimulator_tpu_torch.utils import (
+    Color,
     ScenarioUtils,
     TorchUtils,
     env_index_to_mask,
@@ -834,6 +836,7 @@ class Scenario(BaseScenario):
         return rew
 
     _new_short_term = None
+    _map_render = None  # the lanelets' segments, made at the first frame
 
     # ------------------------------------------------------------------ #
     def observation(self, agent):
@@ -1129,3 +1132,34 @@ class Scenario(BaseScenario):
             "is_collision_with_lanelets": torch.any(self.collide_lanelets,
                                                     dim=-1),
         }
+
+    def _map_geoms(self):
+        """The lanelets' boundaries as segments, built at the first frame
+        from the map the scenario holds and kept."""
+        from vectorizedmultiagentsimulator_tpu_torch import render as rendering
+
+        if self._map_render is None:
+            self._map_render = []
+            for lanelet in self.map_data["lanelets"]:
+                for bound in ("left_boundary", "right_boundary"):
+                    pts = np.asarray(lanelet[bound])
+                    for p0, p1 in zip(pts[:-1], pts[1:]):
+                        seg = rendering.Line(tuple(p0), tuple(p1), width=0.005)
+                        seg.set_color(*Color.BLACK.value)
+                        self._map_render.append(seg)
+        return self._map_render
+
+    def extra_render(self, env_index: int = 0):
+        from vectorizedmultiagentsimulator_tpu_torch import render as rendering
+
+        geoms = list(self._map_geoms())
+        if self.is_visualize_short_term_path:
+            st = np.asarray(self.short_term)[env_index]
+            for i_agent in range(self.n_agents):
+                color = self.world.agents[i_agent].color
+                pts = st[i_agent]
+                for p0, p1 in zip(pts[:-1], pts[1:]):
+                    seg = rendering.Line(tuple(p0), tuple(p1), width=0.004)
+                    seg.set_color(*color[:3])
+                    geoms.append(seg)
+        return geoms

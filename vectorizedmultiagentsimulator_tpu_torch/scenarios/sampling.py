@@ -25,6 +25,7 @@ from vectorizedmultiagentsimulator_tpu_torch.core import (
 from vectorizedmultiagentsimulator_tpu_torch.scenario import BaseScenario
 from vectorizedmultiagentsimulator_tpu_torch.sensors import Lidar
 from vectorizedmultiagentsimulator_tpu_torch.utils import (
+    Color,
     ScenarioUtils,
     TorchUtils,
     X,
@@ -272,3 +273,73 @@ class Scenario(BaseScenario):
 
     def info(self, agent):
         return {"agent_sample": agent.sample}
+
+    def density_for_plot(self, env_index):
+        """The mixture's normalised pdf under env ``env_index``'s means, as
+        a function of ``[P, 2]`` numpy positions (the field plot's)."""
+        def f(x):
+            pos = torch.as_tensor(np.asarray(x), dtype=torch.float32)
+            locs = self.locs[env_index]  # [G, 2]
+            covs = torch.tensor(self.covs, dtype=torch.float32)
+            diff = pos[:, None, :] - locs[None]
+            exponent = -0.5 * torch.sum(diff**2, dim=-1) / covs[None]
+            dens = torch.exp(exponent) / (2 * np.float32(np.pi) * covs[None])
+            v = torch.sum(dens, dim=-1) / self.max_pdf[env_index]
+            return v.numpy()
+
+        return f
+
+    def extra_render(self, env_index: int = 0):
+        from vectorizedmultiagentsimulator_tpu_torch import render as rendering
+
+        geoms = [
+            rendering.render_function_util(
+                f=self.density_for_plot(env_index=env_index),
+                precision=self.grid_spacing,
+                plot_range=((-self.xdim, self.xdim), (-self.ydim, self.ydim)),
+                cmap_alpha=self.alpha_plot,
+            )
+        ]
+        for i, agent1 in enumerate(self.world.agents):
+            for j, agent2 in enumerate(self.world.agents):
+                if j <= i:
+                    continue
+                agent_dist = torch.linalg.norm(
+                    agent1.state.pos - agent2.state.pos, dim=-1
+                )
+                if float(agent_dist[env_index]) <= self.comms_range:
+                    line = rendering.Line(
+                        tuple(np.asarray(agent1.state.pos)[env_index]),
+                        tuple(np.asarray(agent2.state.pos)[env_index]),
+                        width=0.005,
+                    )
+                    line.set_color(*Color.BLACK.value)
+                    geoms.append(line)
+        for i in range(4):
+            length = (
+                2 * ((self.ydim if i % 2 == 0 else self.xdim) - self.agent_radius)
+                + self.agent_radius * 2
+            )
+            geom = rendering.make_line(length)
+            xform = rendering.Transform()
+            geom.add_attr(xform)
+            xform.set_translation(
+                0.0
+                if i % 2
+                else (
+                    self.x_semidim + self.agent_radius
+                    if i == 0
+                    else -self.x_semidim - self.agent_radius
+                ),
+                0.0
+                if not i % 2
+                else (
+                    self.y_semidim + self.agent_radius
+                    if i == 1
+                    else -self.y_semidim - self.agent_radius
+                ),
+            )
+            xform.set_rotation(np.pi / 2 if not i % 2 else 0.0)
+            geom.set_color(*Color.BLACK.value)
+            geoms.append(geom)
+        return geoms

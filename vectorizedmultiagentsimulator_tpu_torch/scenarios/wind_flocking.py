@@ -19,6 +19,7 @@ from vectorizedmultiagentsimulator_tpu_torch.controllers import VelocityControll
 from vectorizedmultiagentsimulator_tpu_torch.core import Agent, Sphere, World
 from vectorizedmultiagentsimulator_tpu_torch.scenario import BaseScenario
 from vectorizedmultiagentsimulator_tpu_torch.utils import (
+    Color,
     ScenarioUtils,
     TorchUtils,
     X,
@@ -368,3 +369,37 @@ class Scenario(BaseScenario):
                 agent.state.vel - self.desired_vel[None], dim=-1
             ),
         }
+
+    def extra_render(self, env_index: int = 0):
+        from vectorizedmultiagentsimulator_tpu_torch import render as rendering
+
+        geoms = []
+        line = rendering.Line(
+            (-self.desired_distance / 2, 0),
+            (self.desired_distance / 2, 0),
+            width=0.005,
+        )
+        xform = rendering.Transform()
+        mid = (
+            np.asarray(self._big_agent.state.pos)[env_index]
+            + np.asarray(self._small_agent.state.pos)[env_index]
+        ) / 2
+        xform.set_translation(*mid)
+        xform.set_rotation(
+            float(np.asarray(self.get_agents_angle())[env_index, 0])
+        )
+        line.add_attr(xform)
+        line.set_color(*Color.BLACK.value)
+        geoms.append(line)
+
+        line2 = rendering.Line(
+            (-self.desired_distance / 2, 0),
+            (self.desired_distance / 2, 0),
+            width=0.005,
+        )
+        xform2 = rendering.Transform()
+        xform2.set_translation(0.0, self.max_pos)
+        line2.add_attr(xform2)
+        line2.set_color(*Color.RED.value)
+        geoms.append(line2)
+        return geoms

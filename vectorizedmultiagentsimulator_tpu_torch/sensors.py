@@ -8,7 +8,11 @@ world-frame angles itself, and each LIDAR reads its own slice.
 ``measure(vectorized=False)`` is the reference's ray-by-ray form: one
 ``World.cast_ray`` (one launch) a ray, on the same world-frame angles, so
 both forms give the same bits.
-Rendering is not ported: ``render`` returns no geometry.
+``render`` draws the rays of distances it is given: ``Environment.render``
+measures each rendering LIDAR from the current state (the world's cached
+cast where it is current) and copies env ``env_index``'s row to the host
+with the rest of the frame, so a frame after a CUDA-graph rollout, which
+drops the casts, still draws the last step's rays.
 """
 from __future__ import annotations
 
@@ -56,8 +60,6 @@ class Lidar(Sensor):
         alpha: float = 1.0,
         render: bool = True,
     ):
-        """``render_color``, ``alpha`` and ``render`` keep the JAX
-        package's signature; rendering is not ported."""
         super().__init__(world)
         # Drop the duplicated endpoint on full circles (sensors.py:61-68).
         if (angle_start - angle_end) % (np.pi * 2) < 1e-5:
@@ -72,10 +74,30 @@ class Lidar(Sensor):
         self.angles_key = tuple(float(a) for a in np.float32(angles))
         self._max_range = max_range
         self._entity_filter = entity_filter
+        self._render = render
+        self._render_color = render_color
+        self._alpha = alpha
 
     @property
     def entity_filter(self):
         return self._entity_filter
+
+    @property
+    def render_color(self):
+        if isinstance(self._render_color, Color):
+            return self._render_color.value
+        return self._render_color
+
+    @property
+    def alpha(self):
+        return self._alpha
+
+    @property
+    def rendering(self) -> bool:
+        return self._render
+
+    def set_render(self, render: bool):
+        self._render = render
 
     @entity_filter.setter
     def entity_filter(self, entity_filter: Callable):
@@ -96,5 +118,12 @@ class Lidar(Sensor):
             for i in range(angles.shape[1])
         ], dim=1)
 
-    def render(self, env_index: int = 0) -> list:
-        return []
+    def render(self, env_index: int = 0, measurement=None) -> list:
+        """The rays of the distances ``measurement`` (numpy, ``[n_rays]``,
+        env ``env_index``'s row); none where rendering is off or no
+        distances are given."""
+        if not self._render or measurement is None:
+            return []
+        from vectorizedmultiagentsimulator_tpu_torch.render import lidar_geoms
+
+        return lidar_geoms(self, measurement, env_index)

@@ -131,6 +131,17 @@ class TorchUtils:
         return TorchUtils.cross(r, f)
 
     @staticmethod
+    def to_numpy(data):
+        """``data`` (a tensor, or nested dicts, lists and tuples of them)
+        with every tensor as a numpy array, the structure kept (tuples
+        become lists); all of them made by one device-to-host copy
+        (``host_copy``)."""
+        leaves = []
+        map_tensors(data, leaves.append)
+        host = iter(host_copy(leaves))
+        return map_tensors(data, lambda _: next(host).numpy())
+
+    @staticmethod
     def where_from_index(env_index, new_value, old_value: Tensor) -> Tensor:
         """Masked overwrite of the envs named by ``env_index`` (None: all)."""
         mask = env_index_to_mask(
@@ -391,6 +402,63 @@ class ScenarioUtils:
         return torch.argsort(u, dim=1)
 
     @staticmethod
+    def plot_entity_rotation(entity, env_index: int, length: float = 0.15):
+        """Heading indicator line geom (reference utils.py:332-345)."""
+        from vectorizedmultiagentsimulator_tpu_torch.render import (
+            Line,
+            Transform,
+        )
+
+        color = entity.color
+        line = Line(start=(0.0, 0.0), end=(length, 0.0), width=0.01)
+        xform = Transform(
+            translation=tuple(np.asarray(entity.state.pos)[env_index]),
+            rotation=float(np.asarray(entity.state.rot)[env_index, 0]),
+        )
+        line.add_attr(xform)
+        line.set_color(*color[:3])
+        return line
+
+    @staticmethod
+    def render_agent_indices(
+        scenario, env_index: int, start_from: int = 0, exclude=None
+    ):
+        """Screen-space index labels over agents (reference utils.py:333-364):
+        one ``TextLine`` per agent not in ``exclude``, placed by projecting
+        the agent's position through the scenario's viewer size and zoom."""
+        from vectorizedmultiagentsimulator_tpu_torch.render import TextLine
+
+        aspect_r = scenario.viewer_size[X] / scenario.viewer_size[Y]
+        if aspect_r > 1:
+            dimensional_ratio = (aspect_r, 1)
+        else:
+            dimensional_ratio = (1, 1 / aspect_r)
+
+        geoms = []
+        for i, entity in enumerate(scenario.world.agents):
+            if exclude is not None and entity in exclude:
+                continue
+            pos = np.asarray(entity.state.pos)[env_index]
+            zoom_sq = scenario.viewer_zoom**2
+            geoms.append(
+                TextLine(
+                    text=str(i + start_from),
+                    font_size=15,
+                    x=(
+                        pos[X] * scenario.viewer_size[X]
+                        / (zoom_sq * dimensional_ratio[X] * 2)
+                        + scenario.viewer_size[X] / 2
+                    ),
+                    y=(
+                        pos[Y] * scenario.viewer_size[Y]
+                        / (zoom_sq * dimensional_ratio[Y] * 2)
+                        + scenario.viewer_size[Y] / 2
+                    ),
+                )
+            )
+        return geoms
+
+    @staticmethod
     def check_kwargs_consumed(kwargs: Dict, warn: bool = True):
         if len(kwargs) > 0:
             message = (
@@ -402,6 +470,99 @@ class ScenarioUtils:
                 warnings.warn(message)
             else:
                 raise ValueError(message)
+
+
+def host_copy(tensors: List[Tensor]) -> List[Tensor]:
+    """``tensors`` (any devices, dtypes and shapes) on the host, made by one
+    device-to-host copy: their bytes are packed into one buffer on the
+    device, copied, and cut apart on the host."""
+    if not tensors:
+        return []
+    with torch.no_grad():
+        flat = torch.cat([t.detach().contiguous().reshape(-1)
+                          .view(torch.uint8) for t in tensors])
+    host = flat.cpu()
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        out.append(host[at:at + n].clone().view(t.dtype).reshape(t.shape))
+        at += n
+    return out
+
+
+def map_tensors(data, fn):
+    """``data`` (a tensor, or nested dicts, lists and tuples of them and of
+    other leaves) with ``fn`` applied to each tensor, in a fixed order, the
+    structure kept (tuples become lists)."""
+    if isinstance(data, Tensor):
+        return fn(data)
+    if isinstance(data, dict):
+        return {k: map_tensors(v, fn) for k, v in data.items()}
+    if isinstance(data, (list, tuple)):
+        return [map_tensors(v, fn) for v in data]
+    return data
+
+
+def save_video(name: str, frame_list, fps: int):
+    """Save a list of rgb frames (reference utils.py:106) as a compressed
+    ``<name>.npz`` stack, plus ``<name>.gif`` where PIL is installed."""
+    frames = np.stack([np.asarray(f) for f in frame_list])
+    np.savez_compressed(f"{name}.npz", frames=frames, fps=fps)
+    try:
+        from PIL import Image
+
+        imgs = [Image.fromarray(f) for f in frames]
+        imgs[0].save(
+            f"{name}.gif",
+            save_all=True,
+            append_images=imgs[1:],
+            duration=int(1000 / max(fps, 1)),
+            loop=0,
+        )
+    except Exception:
+        pass
+
+
+def x_to_rgb_colormap(
+    x,
+    low: float = None,
+    high: float = None,
+    alpha: float = 1.0,
+    cmap_name: str = "viridis",
+    cmap_res: int = 10,
+):
+    """Map scalars to RGBA via a discretized colormap with linear
+    interpolation between bins (reference utils.py:127-152): matplotlib's
+    colormap where ``matplotlib.cm.get_cmap`` exists, else a blue-to-red
+    ramp, as in the JAX package."""
+    x = np.asarray(x, dtype=np.float64)
+    try:
+        from matplotlib import cm
+
+        colormap = cm.get_cmap(cmap_name, cmap_res)(range(cmap_res))[:, :-1]
+    except Exception:
+        t = np.linspace(0.0, 1.0, cmap_res)
+        colormap = np.stack([t, 0.5 * np.ones_like(t), 1 - t], axis=-1)
+    if low is None:
+        low = np.min(x)
+    if high is None:
+        high = np.max(x)
+    x = np.clip(x, low, high)
+    if high - low > 1e-5:
+        x = (x - low) / (high - low) * (cmap_res - 1)
+    x_c0_idx = np.floor(x).astype(int)
+    x_c1_idx = np.ceil(x).astype(int)
+    x_c0 = colormap[x_c0_idx, :]
+    x_c1 = colormap[x_c1_idx, :]
+    t = x - x_c0_idx
+    rgb = t[:, None] * x_c1 + (1 - t)[:, None] * x_c0
+    return np.concatenate([rgb, alpha * np.ones((rgb.shape[0], 1))], axis=-1)
+
+
+def extract_nested_with_index(data, index: int):
+    if isinstance(data, dict):
+        return {k: extract_nested_with_index(v, index) for k, v in data.items()}
+    return data[index]
 
 
 def state_to_numpy(env) -> Dict:
