@@ -167,7 +167,7 @@ Phases, one line each:
      states: every output, the final state and the world generator's
      state equal to the bit, and the replayed launches a step those of
      phase 3 (each count set to 0 just before and read just after); then
-     each main path at its own envs, 100-step rollouts eager and as a
+     each main path at its own envs, 50-step rollouts eager and as a
      graph in turns (eager, graph, graph, eager): env-steps/s, the
      capture's time and peak memory, and 20 graph steps under the
      profiler (wall, device busy, idle share, device kernels and launches
@@ -202,7 +202,32 @@ Phases, one line each:
      more, restored into a fresh env (and, through rollout's graph, into
      the env holding the captured graph) and 20 steps equal to the bit
      (outputs, final state, generator), eagerly and through the graph,
-     with the file's bytes and the ms to save and to restore.
+     with the file's bytes and the ms to save and to restore;
+  8. multi-device and gradients: (a) the gradient of a 3-step rollout loss
+     (tests/test_torch_grad.py's: the mean of every observation and reward
+     over the steps, with respect to the first action applied every step)
+     at 1024 envs of transport, navigation, balance, joint_passage,
+     discovery and road_traffic (map '1', 4 agents), through the kernels'
+     autograd.Functions on the card, against the CPU port's from the same
+     state (GRAD_TOL; joint_passage's chaotic gradient by the share of
+     envs it moves, against the CPU's own under an ulp of the positions:
+     this holds the forwards and what they save, the backward being the
+     same plain version on both sides), with each path kernel's launches
+     in the forward
+     (above 0; the backward, the plain versions, launches none), finite
+     and nonzero; (b) two worker processes on the one card over gloo
+     (parallel.run_workers; parallel.init_distributed): transport@30k,
+     navigation@30k and road_traffic@10k (noise off) split 2 x B/2, 10
+     steps of each rank's shard equal to the one-process env's rows to the
+     bit (outputs, state fields, extras), then a masked reset of every env
+     that draws differently on the two ranks; the data-parallel trainer at
+     transport@4096 (2 x 2048): one update of 1 epoch x 1 minibatch from
+     one packed rollout split by env (norm_n = 2 x mb) against the
+     one-process update (PPO_GRAD_TOL), then one full iteration at the
+     PPOConfig defaults, its wall, the ms of a minibatch's all-reduces, and
+     the parameters bit-identical on the two ranks; (c) an NCCL world of one
+     rank: one data-parallel iteration equal to the plain Trainer's to the
+     bit, with no host sync (torch.cuda.set_sync_debug_mode("error")).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -335,6 +360,10 @@ PLAIN_ROUTE = ("het_mass", "pollock")
 # in a row; then each path's eager and graph rates at its own envs.
 GRAPH_ENVS = 1024
 GRAPH_STEPS = 10
+# Phase 6's rollouts that time each main path eager and as a graph: a
+# road_traffic eager step takes about 70 ms at 10k envs, and its three
+# eager rollouts and its capture are most of the phase's time.
+GRAPH_RATE_STEPS = 50
 # The graph rollouts that time OTHER_PATHS at N_ENVS; pollock's plain
 # physics over 45 entities takes about 0.75 s a step at 30k (its capture of
 # 25 steps took 23.7 s, each replay 19 s), so it rolls POLLOCK_STEPS.
@@ -472,7 +501,61 @@ TRAIN_CELLS = [("simple_spread", 4096), ("transport", 4096),
 PPO_COMPARED = set()
 
 
+# Phase 8.  The gradient paths and their kwargs (road_traffic as
+# tests/test_grad.py differentiates it), at GRAD_ENVS envs over GRAD_STEPS
+# steps, and the kernels each one's forward launches.
+GRAD_PATHS = [("transport", {}), ("navigation", {}), ("balance", {}),
+              ("joint_passage", {}), ("discovery", {}),
+              ("road_traffic", dict(n_agents=4, map_type="1"))]
+GRAD_ENVS = 1024
+GRAD_STEPS = 3
+GRAD_KERNELS = {
+    "navigation": ("physics_step", "raycast"),
+    "discovery": ("physics_step", "raycast"),
+    "road_traffic": ("physics_step", "agent_geometry", "pair_collisions",
+                     "neighbor_obs"),
+}
+# The card's gradient against the CPU's, as a share of the CPU gradient's
+# largest entry.  The backward is the same plain version on both sides, at
+# the forward's saved inputs, so this holds the kernels' forwards and the
+# inputs they save for the backward (and the plain backward on the card's
+# tensors), not the backward's formulas: tests/test_torch_grad.py holds
+# those against jax.grad on the CPU.  The forward kernels and the card's
+# libm differ from the CPU's by ulps, which 3 steps of soft contacts and
+# ray casts amplify: discovery's gradient (largest entry 7.6e-5) differed
+# by 9.6e-5 of it on an H100 (PERF.md §6), the others by at most 4.7e-7.
+# Held at 1e-3, 10x that; a wrong forward or a wrong saved input moves it
+# by O(1).  joint_passage's stiff joints (joint_force 900, 10 substeps)
+# make its gradient chaotic: an ulp of the positions moves the CPU's own
+# gradient by more than 1e-3 of its largest entry in about a fifth of the
+# envs (phase 8 prints the share), and the card's forward differs from the
+# CPU's by more than an ulp.  So it is held by share: the share of envs
+# whose card gradient differs from the CPU's by more than GRAD_STIFF_DIFF
+# of the largest entry may be at most the smallest such share of
+# GRAD_NUDGES copies of the state with every position moved by an ulp (the
+# card's forward may move the gradient no more than an ulp of the state
+# does).
+GRAD_TOL = 1e-3
+GRAD_STIFF = ("joint_passage",)
+GRAD_STIFF_DIFF = 1e-3
+GRAD_NUDGES = 2
+# The paths split over two ranks, the steps compared, the data-parallel
+# training cell, and the workers' time limit (a hung rank fails the run).
+SPLIT_PATHS = (("transport", N_ENVS), ("navigation", N_ENVS),
+               ("road_traffic", 10_000))
+SPLIT_STEPS = 10
+DP_CELL = ("transport", 4096)
+DP_TIMEOUT_S = 300
+
+
+_T0 = time.perf_counter()
+
+
 def log(msg):
+    """Print ``msg``; a phase's line (``[4] ...``) ends with the seconds
+    since the script started, so the log shows where the run's time goes."""
+    if msg[:1] == "[" and msg[1:2].isdigit():
+        msg = f"{msg} [{time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -2339,9 +2422,9 @@ def graph_vs_eager(path, envs, steps=GRAPH_STEPS, trace=True):
 
 
 def graph_rates(name, envs):
-    """N_STEPS-step rollouts (default policy, nothing collected) eager and
-    as a graph, in turns (eager, graph, graph, eager) after a warm-up of
-    each: env-steps/s; the graph's capture time and peak memory; then
+    """GRAPH_RATE_STEPS-step rollouts (default policy, nothing collected)
+    eager and as a graph, in turns (eager, graph, graph, eager) after a
+    warm-up of each: env-steps/s; the graph's capture time and peak memory; then
     PROFILE_STEPS graph steps under torch.profiler: wall ms a step (CUDA
     events, without the profiler), device busy ms a step, idle share,
     device kernels a step, and the port's kernels a replayed step (by name
@@ -2352,8 +2435,8 @@ def graph_rates(name, envs):
     from vectorizedmultiagentsimulator_tpu_torch.parallel import rollout
 
     env = make_path_env(name, envs)
-    run = lambda graph, n=N_STEPS: rollout(env, n_steps=n, collect=(),
-                                           graph=graph)
+    run = lambda graph, n=GRAPH_RATE_STEPS: rollout(  # noqa: E731
+        env, n_steps=n, collect=(), graph=graph)
     run(False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2368,7 +2451,8 @@ def graph_rates(name, envs):
         t0 = time.perf_counter()
         run(graph)
         torch.cuda.synchronize()
-        rates[graph].append(envs * N_STEPS / (time.perf_counter() - t0))
+        rates[graph].append(
+            envs * GRAPH_RATE_STEPS / (time.perf_counter() - t0))
     run(True, PROFILE_STEPS)
     wall = cuda_time_ms(lambda: run(True, PROFILE_STEPS), 3) / PROFILE_STEPS
     with profile(activities=[ProfilerActivity.CPU,
@@ -2385,7 +2469,8 @@ def graph_rates(name, envs):
            "peak_gib": peak, "wall_ms": wall, "busy_ms": busy,
            "idle": 1.0 - busy / wall if device else None,
            "kernels": len(device) / PROFILE_STEPS, "launches": launches}
-    log(f"[6] {name}@{envs} {N_STEPS}-step rollout env-steps/s: eager"
+    log(f"[6] {name}@{envs} {GRAPH_RATE_STEPS}-step rollout env-steps/s:"
+        " eager"
         f" {rates[False][0]:.6g} {rates[False][1]:.6g}, graph"
         f" {rates[True][0]:.6g} {rates[True][1]:.6g}; capture {capture_s:.2f}"
         f" s, peak {peak:.3f} GiB; graph {PROFILE_STEPS} steps: wall"
@@ -2811,6 +2896,407 @@ def edges_phase(tmp):
         str(FRAME_SMALL_ENVS): small_ms}, "checkpoints": ckpt}
 
 
+def rollout_loss(env, steps=GRAD_STEPS):
+    """``(first, loss)``: the first action (0.1 everywhere, every step's
+    action) and the rollout loss of tests/test_torch_grad.py."""
+    import torch
+
+    sizes = [env.get_agent_action_size(a) for a in env.agents]
+    first = torch.full((env.num_envs, sum(sizes)), 0.1, device=env.device,
+                       requires_grad=True)
+    actions = list(torch.split(first, sizes, dim=1))
+    total = 0.0
+    for _ in range(steps):
+        obs, rews, _, _ = env.step(actions)
+        total = total + sum(o.mean() for o in obs) + sum(
+            r.mean() for r in rews)
+    return first, total
+
+
+def grad_vs_cpu(name, kwargs):
+    """Phase 8 (a): the rollout loss's gradient on the card (the kernels'
+    forwards, the plain versions' backwards) against the CPU port's from
+    the same state; returns the forward's launches and max |diff| / max
+    |cpu gradient|."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        launch_counts,
+        set_launch_counts,
+    )
+    from vectorizedmultiagentsimulator_tpu_torch.utils import (
+        state_from_numpy,
+        state_to_numpy,
+    )
+
+    kwargs = dict(kwargs, **CPU_COMPARE_KWARGS.get(name, {}))
+    env_g = make_path_env(name, GRAD_ENVS, grad_enabled=True, **kwargs)
+    env_c = make_path_env(name, GRAD_ENVS, device="cpu", grad_enabled=True,
+                          **kwargs)
+    state_from_numpy(env_c, state_to_numpy(env_g))
+    torch.cuda.synchronize()
+    set_launch_counts(dict.fromkeys(launch_counts(), 0))
+    t0 = time.perf_counter()
+    first, loss = rollout_loss(env_g)
+    forward = launch_counts()
+    (grad,) = torch.autograd.grad(loss, first)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    assert launch_counts() == forward, (
+        f"{name}: the backward launched kernels")
+    arrays = state_to_numpy(env_c)
+    first_c, loss_c = rollout_loss(env_c)
+    (ref,) = torch.autograd.grad(loss_c, first_c)
+    grad = grad.cpu()
+    assert bool(torch.isfinite(grad).all()), f"{name}: gradient not finite"
+    scale = float(ref.abs().max())
+    diff = (grad - ref).abs().amax(dim=1)
+    err = float(diff.max())
+    need = GRAD_KERNELS.get(name, ("physics_step",))
+    launched = {k: forward[k] for k in need}
+    rule = f"held at {GRAD_TOL:g}"
+    bad = int((diff > GRAD_TOL * scale).sum())
+    if name in GRAD_STIFF:
+        shares = []
+        for k in range(GRAD_NUDGES):
+            env_n = make_path_env(name, GRAD_ENVS, device="cpu",
+                                  grad_enabled=True, **kwargs)
+            pos = torch.from_numpy(arrays["pos"])
+            up = torch.rand(pos.shape,
+                            generator=torch.Generator().manual_seed(k)) < 0.5
+            nudged = torch.where(up, torch.nextafter(pos, pos + 1),
+                                 torch.nextafter(pos, pos - 1))
+            state_from_numpy(env_n, dict(arrays, pos=nudged.numpy()))
+            first_n, loss_n = rollout_loss(env_n)
+            (g_n,) = torch.autograd.grad(loss_n, first_n)
+            moved = (g_n - ref).abs().amax(dim=1) > GRAD_STIFF_DIFF * scale
+            shares.append(float(moved.float().mean()))
+        share = float((diff > GRAD_STIFF_DIFF * scale).float().mean())
+        limit = min(shares)
+        bad = int(share > limit)
+        rule = (f"chaotic: {share:.4f} of the envs beyond {GRAD_STIFF_DIFF:g}"
+                f" of the largest entry, against {shares} for the CPU"
+                f" with every position moved by an ulp; held at their"
+                f" smallest, {limit:.4f}")
+    log(f"[8] gradient {name}@{GRAD_ENVS} ({GRAD_STEPS} steps): card vs cpu"
+        f" max |diff| {err:.3e} of max |gradient| {scale:.3e}"
+        f" ({err / scale:.3e}, {rule}); loss card"
+        f" {float(loss.detach()):.6f} cpu {float(loss_c.detach()):.6f};"
+        f" forward launches {launched}; forward + backward on the card"
+        f" {ms:.1f} ms")
+    assert scale > 0 and float(grad.abs().max()) > 0, f"{name}: zero gradient"
+    assert all(n > 0 for n in launched.values()), (
+        f"{name}: a kernel of the path was not launched: {launched}")
+    assert bad == 0, f"{name}: card gradient != cpu gradient"
+    return forward, err / scale
+
+
+def split_checks(mesh):
+    """Phase 8 (b) on one rank: each SPLIT_PATHS path split over the mesh,
+    SPLIT_STEPS steps of this rank's shard against its rows of the
+    one-process env (to the bit), then a masked reset of every env; returns
+    ``{path: {...}}``."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.ops import launch_counts
+    from vectorizedmultiagentsimulator_tpu_torch.parallel import (
+        shard_environment,
+    )
+    from vectorizedmultiagentsimulator_tpu_torch.utils import STATE_FIELDS
+
+    out = {}
+    for name, B in SPLIT_PATHS:
+        env = make_path_env(name, B, **CPU_COMPARE_KWARGS.get(name, {}))
+        local = shard_environment(env, mesh)
+        n = B // mesh.size
+        rows = slice(mesh.rank * n, (mesh.rank + 1) * n)
+        g = torch.Generator(device="cuda").manual_seed(11)
+        sizes = [env.get_agent_action_size(a) for a in env.agents]
+        differ, launches = [], {}
+        for t in range(SPLIT_STEPS):
+            acts = [torch.rand((B, k), generator=g, device="cuda") * 2 - 1
+                    for k in sizes]
+            want = env.step(acts)
+            before = launch_counts()
+            got = local.step([a[rows] for a in acts])
+            for k, v in launch_counts().items():
+                launches[k] = launches.get(k, 0) + v - before[k]
+            pairs = [(f"obs {i}", x, y[rows]) for i, (x, y) in
+                     enumerate(zip(got[0], want[0]))]
+            pairs += [(f"rew {i}", x, y[rows]) for i, (x, y) in
+                      enumerate(zip(got[1], want[1]))]
+            pairs += [("done", got[2], want[2][rows])]
+            s, w = local.world.state, env.world.state
+            pairs += [(f, getattr(s, f), getattr(w, f)[rows])
+                      for f in STATE_FIELDS]
+            pairs += [(k, v, w.extras[k][rows]) for k, v in s.extras.items()]
+            differ += [f"step {t} {k}" for k, x, y in pairs
+                       if not torch.equal(x, y)]
+        local.reset_at(torch.ones((n,), dtype=torch.bool, device="cuda"))
+        pos = torch.zeros((mesh.size,) + tuple(local.world.state.pos.shape),
+                          device="cuda")
+        pos[mesh.rank] = local.world.state.pos
+        mesh.all_reduce(pos)
+        out[name] = {"envs": B, "local_envs": n, "differ": differ[:10],
+                     "n_differ": len(differ),
+                     "ranks_reset_differ": not torch.equal(pos[0], pos[1]),
+                     "launches": {k: v for k, v in launches.items() if v}}
+        del env, local
+    return out
+
+
+def dp_update_check(mesh):
+    """Phase 8 (b): one update of 1 epoch x 1 minibatch at DP_CELL from one
+    packed one-process rollout, split by env: the data-parallel gradient
+    (its kernel at norm_n = mb x ranks, then one all-reduce) against the
+    one-process kernel's."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
+    from vectorizedmultiagentsimulator_tpu_torch.ops import ppo_update_cuda
+
+    name, B = DP_CELL
+    cfg = torch_ppo.PPOConfig(epochs=1, minibatches=1)
+    _, _, one = torch_ppo.init_training(name, B, 0, cfg)
+    packed, _ = one.collect()
+
+    def grads_of(trainer, packed_fm):
+        spec = trainer.spec
+        adv = packed_fm[spec.obs_d + spec.act_w + 1].reshape(-1, spec.lb)
+        pm = torch.arange(spec.mb // spec.lb, dtype=torch.int32,
+                          device="cuda")
+        return trainer.minibatch_grads(packed_fm, pm, adv.sum(1),
+                                       (adv * adv).sum(1))
+
+    ref, ref_sums = grads_of(one, packed)
+    _, _, dp = torch_ppo.init_training(name, B, 0, cfg, mesh=mesh)
+    with torch.no_grad():
+        for p, q in zip(dp.model.ordered_parameters(),
+                        one.model.ordered_parameters()):
+            p.copy_(q)
+    before = ppo_update_cuda.LAUNCHES
+    got, sums = grads_of(dp, torch_ppo.shard_packed(packed, B, mesh))
+    launches = ppo_update_cuda.LAUNCHES - before
+    rel = max(float((g - r).abs().max() / r.abs().max())
+              for g, r in zip(got, ref))
+    abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    # phase 2's rule for a loss sum: a relative error and an absolute one
+    # that grows with the O(1) terms summed
+    sums_ok = all(
+        abs(float(a) - float(b)) <= PPO_SUM_RTOL * abs(float(b))
+        + PPO_SUM_ATOL_PER_SAMPLE * one.spec.mb
+        for a, b in zip(sums, ref_sums))
+    sums_err = max(abs(float(a) - float(b)) for a, b in zip(sums, ref_sums))
+    return {"norm_n": dp.spec.norm_n, "mb": dp.spec.mb,
+            "one_process_mb": one.spec.mb, "launches": launches,
+            "max_abs_err": abs_err, "max_rel_err": rel,
+            "sums_abs_err": sums_err, "sums_ok": sums_ok}
+
+
+def dp_iteration(mesh):
+    """Phase 8 (b): the data-parallel trainer at DP_CELL with the PPOConfig
+    defaults, one iteration after one warm-up: its wall, its launches, the
+    ms of one minibatch's all-reduces (the advantage sums, then the flat
+    gradients and sums), and whether the parameters are bit-identical on
+    every rank."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
+    from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        launch_counts,
+    )
+
+    name, B = DP_CELL
+    _, step, trainer = torch_ppo.init_training(name, B, 0,
+                                               torch_ppo.PPOConfig(),
+                                               mesh=mesh)
+    trainer, _ = step(trainer)
+    torch.cuda.synchronize()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    trainer, metrics = step(trainer)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {k: v - before[k] for k, v in launch_counts().items()
+                if v - before[k]}
+    flat = torch.cat([p.detach().reshape(-1)
+                      for p in trainer.model.ordered_parameters()])
+    rank0 = mesh.broadcast(flat.clone(), 0)
+    differ = mesh.all_reduce(
+        torch.tensor([0.0 if torch.equal(flat, rank0) else 1.0],
+                     device="cuda"))
+    grads = [torch.zeros_like(p) for p in trainer.model.ordered_parameters()]
+    stats, sums = torch.zeros(2, device="cuda"), torch.zeros(3, device="cuda")
+    reps = 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        mesh.all_reduce(stats)
+        trainer.reduce_update(grads, sums)
+    torch.cuda.synchronize()
+    reduce_ms = (time.perf_counter() - t0) * 1e3 / reps
+    return {"wall_ms": wall, "launches": launches,
+            "ranks_with_other_params": int(differ.item()),
+            "allreduce_ms_per_minibatch": reduce_ms,
+            "flat_floats": flat.numel() + 3,
+            "loss": float(metrics["loss"]),
+            "mean_reward": float(metrics["mean_reward"])}
+
+
+def world_of_one(mesh):
+    """Phase 8 (c): an NCCL world of one rank: one data-parallel iteration
+    at DP_CELL under torch.cuda.set_sync_debug_mode("error") against the
+    plain Trainer's, parameters and metrics to the bit."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.examples import torch_ppo
+    from vectorizedmultiagentsimulator_tpu_torch.ops import launch_counts
+
+    name, B = DP_CELL
+    cfg = torch_ppo.PPOConfig()
+    _, step_p, plain = torch_ppo.init_training(name, B, 0, cfg)
+    plain, m_plain = step_p(plain)
+    _, step_d, dp = torch_ppo.init_training(name, B, 0, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    before = launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dp, m_dp = step_d(dp)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = {k: v - before[k] for k, v in launch_counts().items()
+                if v - before[k]}
+    torch.cuda.synchronize()
+    same = all(torch.equal(p, q) for p, q in zip(
+        plain.model.ordered_parameters(), dp.model.ordered_parameters()))
+    same_metrics = all(torch.equal(m_plain[k], m_dp[k]) for k in m_plain)
+    return {"params_equal": same, "metrics_equal": same_metrics,
+            "norm_n": dp.spec.norm_n, "launches": launches}
+
+
+def dp_worker(backend, rank, world, port, out):
+    """One rank of phase 8's worlds on the card (``--dp-worker``): joins
+    the process group and writes its results to ``out/rank<rank>.json``."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.parallel import (
+        init_distributed,
+    )
+
+    mesh = init_distributed(backend, int(rank), int(world),
+                            init_method=f"tcp://localhost:{port}",
+                            device="cuda:0", timeout_s=DP_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if backend == "gloo":
+        result = {"split": split_checks(mesh),
+                  "update": dp_update_check(mesh),
+                  "iteration": dp_iteration(mesh)}
+    else:
+        result = {"world_of_one": world_of_one(mesh)}
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def run_world(backend, n, tmp):
+    """``n`` ranks of dp_worker over ``backend``, each its own process on
+    the one card; returns their results."""
+    from vectorizedmultiagentsimulator_tpu_torch.parallel import run_workers
+    from vectorizedmultiagentsimulator_tpu_torch.parallel.distributed import (
+        free_port,
+    )
+
+    out = os.path.join(tmp, backend)
+    os.makedirs(out)
+    port = str(free_port())
+    t0 = time.perf_counter()
+    run_workers([[sys.executable, os.path.abspath(__file__), "--dp-worker",
+                  backend, str(r), str(n), port, out] for r in range(n)],
+                DP_TIMEOUT_S, cwd=ROOT)
+    log(f"[8] {backend}: {n} worker processes took"
+        f" {time.perf_counter() - t0:.1f} s")
+    results = []
+    for r in range(n):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_8():
+    """Phase 8: gradients through the step on the card, and the env batch
+    split over ranks with the data-parallel trainer (two gloo ranks on the
+    one card, an NCCL world of one).  Returns the figures of the kernels
+    line."""
+    import torch
+
+    launches, grad_errs = {}, {}
+    for name, kwargs in GRAD_PATHS:
+        forward, grad_errs[name] = grad_vs_cpu(name, kwargs)
+        for k, v in forward.items():
+            launches[k] = launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        gloo = run_world("gloo", 2, tmp)
+        nccl = run_world("nccl", 1, tmp)[0]["world_of_one"]
+    for r, res in enumerate(gloo):
+        for name, sp in res["split"].items():
+            log(f"[8] gloo rank {r}: {name}@{sp['envs']} split 2 x"
+                f" {sp['local_envs']}: {SPLIT_STEPS} steps of the shard vs"
+                f" the one-process env's rows, {sp['n_differ']} tensors"
+                f" differ {sp['differ']}; launches {sp['launches']}; a"
+                f" masked reset of every env draws differently on the two"
+                f" ranks: {sp['ranks_reset_differ']}")
+            assert sp["n_differ"] == 0, f"{name}: shard != global rows"
+            assert sp["ranks_reset_differ"], f"{name}: ranks drew alike"
+            for k, v in sp["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            need = GRAD_KERNELS.get(name, ("physics_step",))
+            assert all(sp["launches"].get(k, 0) > 0 for k in need), name
+        up, it = res["update"], res["iteration"]
+        log(f"[8] gloo rank {r}: data-parallel update at"
+            f" {DP_CELL[0]}@{DP_CELL[1]} (1 epoch x 1 minibatch, mb"
+            f" {up['mb']} a rank, norm_n {up['norm_n']}, one-process mb"
+            f" {up['one_process_mb']}): max |diff| {up['max_abs_err']:.3e},"
+            f" {up['max_rel_err']:.3e} of a gradient's largest entry (held"
+            f" at {PPO_GRAD_TOL}), loss sums max |diff|"
+            f" {up['sums_abs_err']:.3e} (phase 2's rule:"
+            f" {up['sums_ok']}); PPO launches {up['launches']}")
+        assert up["norm_n"] == 2 * up["mb"] == up["one_process_mb"]
+        assert up["launches"] == 1
+        assert up["max_rel_err"] <= PPO_GRAD_TOL, "DP update != one process"
+        assert up["sums_ok"], "DP loss sums != one process"
+        log(f"[8] gloo rank {r}: one data-parallel iteration at the"
+            f" PPOConfig defaults: wall {it['wall_ms']:.2f} ms, all-reduces"
+            f" {it['allreduce_ms_per_minibatch']:.4f} ms a minibatch"
+            f" ({it['flat_floats']} floats + 2), launches {it['launches']};"
+            f" ranks whose parameters differ from rank 0's:"
+            f" {it['ranks_with_other_params']}; loss {it['loss']:+.5f},"
+            f" mean reward {it['mean_reward']:+.5f}")
+        assert it["ranks_with_other_params"] == 0
+        assert it["launches"].get("ppo_update") == 16
+        for k, v in [("ppo_update", up["launches"])] + list(
+                it["launches"].items()):
+            launches[k] = launches.get(k, 0) + v
+    log(f"[8] nccl world of one: a data-parallel iteration (norm_n"
+        f" {nccl['norm_n']}) vs the plain Trainer's: parameters equal to the"
+        f" bit {nccl['params_equal']}, metrics {nccl['metrics_equal']}; no"
+        f" host sync under set_sync_debug_mode('error'); launches"
+        f" {nccl['launches']}")
+    assert nccl["params_equal"] and nccl["metrics_equal"]
+    for k, v in nccl["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"[8] phase 8 launches (the gradient forwards; both gloo ranks'"
+        f" sharded steps, data-parallel update and iteration; the NCCL"
+        f" rank's iteration): {launches}")
+    up0, it0 = gloo[0]["update"], gloo[0]["iteration"]
+    return launches, {
+        "path": f"{DP_CELL[0]}@{DP_CELL[1]} over 2 gloo ranks on one card",
+        "norm_n": up0["norm_n"], "mb": up0["mb"],
+        "max_abs_err": max(g["update"]["max_abs_err"] for g in gloo),
+        "max_rel_err": max(g["update"]["max_rel_err"] for g in gloo),
+        "allreduce_ms": max(g["iteration"]["allreduce_ms_per_minibatch"]
+                            for g in gloo),
+        "iteration_ms": it0["wall_ms"],
+        "launches_per_rank": it0["launches"].get("ppo_update"),
+        "nccl_world_of_one_bit_equal": nccl["params_equal"],
+        "grad_max_rel_err": grad_errs,
+    }
+
+
 def main():
     import torch
 
@@ -2823,6 +3309,8 @@ def main():
                   tuple(sys.argv[4].split(",")) if len(sys.argv) > 4
                   else AB_GROUPS)
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(*sys.argv[2:7])
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import numpy as np
     from vectorizedmultiagentsimulator_tpu_torch.ops import (
@@ -3222,7 +3710,11 @@ def main():
         edges_phase(tmp)
     phase_time(7)
 
-    print(json.dumps({"kernels": [
+    # ---- 8: multi-device and gradients ---- #
+    launches_8, data_parallel = phase_8()
+    phase_time(8)
+
+    line = {"kernels": [
         {
             "name": "physics_step",
             "covers": "six contact classes and joint constraints",
@@ -3311,6 +3803,9 @@ def main():
             **{f"hidden_{h}": t for h, t in ppo_global_tiles.items()},
             # No single PyTorch call computes a PPO minibatch's gradients.
             "library_ms": None,
+            # Phase 8: the data-parallel trainer (norm_n = mb x ranks), its
+            # update against the one-process update, the all-reduces' ms.
+            "data_parallel": data_parallel,
         },
     ] + [
         {
@@ -3347,7 +3842,12 @@ def main():
              max(e[1] for e in road_errs["geometry"])),
             ("neighbor_obs", 551, max(road_errs["neighbor_obs"])),
         )
-    ]}), flush=True)
+    ]}
+    for entry in line["kernels"]:
+        # Phase 8's launches: the gradient forwards, and each worker's
+        # sharded steps and data-parallel training.
+        entry["phase_8_launches"] = launches_8.get(entry["name"], 0)
+    print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

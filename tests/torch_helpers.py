@@ -977,3 +977,134 @@ def traced_launches(fn, tries=3):
         for k, key in KERNEL_NAMES.items():
             counts[k] = max(counts.get(k, 0), sum(key in n for n in names))
     return {k: n for k, n in counts.items() if n}
+
+
+# The scenarios of the env-batch split tests, with their kwargs: the JAX
+# package's test sizes; road_traffic without its observation noise, a
+# per-env draw from each rank's own stream (parallel/sharding.py), so
+# that the outputs of a shard and of the global env can be equal to the
+# bit.
+SHARD_CASES = {
+    "transport": {}, "navigation": {}, "discovery": {}, "sampling": {},
+    "wind_flocking": {}, "road_traffic": dict(n_agents=4, is_add_noise=False),
+    "football": {}, "joint_passage": {}, "give_way": {}, "drone": {},
+}
+
+
+def planner_draws(B, T, nsamples, seed=7):
+    """Fixed standard normal planner samples ``[B, T, nsamples, 2]``."""
+    return np.random.RandomState(seed).randn(B, T, nsamples, 2).astype(
+        np.float32)
+
+
+def feed_planner_draws(env, B, rows=slice(None)):
+    """football: the red AI's planner of ``env`` takes rows ``rows`` of
+    :func:`planner_draws` for a global batch of ``B`` every step, so that
+    a shard and the global env draw the same samples for the same env."""
+    policy = env.scenario.red_controller
+    policy.planner_normals = lambda _, T: torch.as_tensor(
+        planner_draws(B, T, policy.nsamples)[rows], device=env.device)
+
+
+def _rows_of(outputs, rows):
+    obs, rew, done = outputs[:3]
+    return ([np.asarray(o)[rows] for o in obs],
+            [np.asarray(r)[rows] for r in rew], np.asarray(done)[rows])
+
+
+def shards_step_as_global(scenario, kwargs, B=8, n=2, steps=3, seed=0):
+    """The port's ``scenario`` at ``B`` envs and its ``n`` in-process
+    shards, stepped with the same uniform numpy actions: each shard's
+    observations, rewards, dones, every state field and every extras buffer
+    equal to the global env's rows to the bit, every step."""
+    from vectorizedmultiagentsimulator_tpu_torch.parallel import (
+        shard_environment,
+    )
+
+    env = cpu_env(scenario, B, **kwargs)
+    shards = [shard_environment(env, rank=r, world_size=n) for r in range(n)]
+    m = B // n
+    if scenario == "football":
+        feed_planner_draws(env, B)
+        for r, shard in enumerate(shards):
+            feed_planner_draws(shard, B, slice(r * m, (r + 1) * m))
+    rng = np.random.RandomState(seed)
+    sizes = [env.get_agent_action_size(a) for a in env.agents]
+    for t in range(steps):
+        acts = [torch.as_tensor(rng.uniform(-1, 1, (B, s)).astype(np.float32))
+                for s in sizes]
+        out = env.step(acts)
+        g = env.world.state
+        for r, shard in enumerate(shards):
+            rows = slice(r * m, (r + 1) * m)
+            got = _rows_of(shard.step([a[rows] for a in acts]), slice(None))
+            want = _rows_of(out, rows)
+            for a, b in zip(got[0] + got[1] + [got[2]],
+                            want[0] + want[1] + [want[2]]):
+                np.testing.assert_array_equal(a, b, err_msg=f"step {t}")
+            s = shard.world.state
+            for f in STATE_FIELDS:
+                torch.testing.assert_close(getattr(s, f), getattr(g, f)[rows],
+                                           rtol=0, atol=0, msg=f)
+            assert set(s.extras) == set(g.extras)
+            for k, v in s.extras.items():
+                torch.testing.assert_close(v, g.extras[k][rows], rtol=0,
+                                           atol=0, msg=k)
+
+
+def held_as_joint_parity(t, outputs, j_outputs, diverged):
+    """One step of a joint scenario held as ``tests/test_torch_joints.py``'s
+    live parity holds it (``tests/test_scenario_parity.py``'s rule): obs
+    and rewards within GOLDEN_BASE growing GOLDEN_GROWTH a step + 2e-3
+    |ref|, at most GOLDEN_MAX_FRAC of the envs (``diverged``, updated in
+    place) beyond, the dones of the others equal."""
+    obs, rew, done = outputs[:3]
+    j_obs, j_rew, j_done = j_outputs[:3]
+    atol = GOLDEN_BASE * GOLDEN_GROWTH**t
+    for got, ref in [(o.numpy(), np.asarray(j)) for o, j in zip(obs, j_obs)
+                     ] + [(r.numpy()[:, None], np.asarray(j)[:, None])
+                          for r, j in zip(rew, j_rew)]:
+        assert np.isfinite(got).all()
+        diverged |= (np.abs(got - ref) > atol + 2e-3 * np.abs(ref)).any(-1)
+    assert diverged.mean() <= GOLDEN_MAX_FRAC + 1e-9, (t, diverged)
+    np.testing.assert_array_equal(done.numpy()[~diverged],
+                                  np.asarray(j_done)[~diverged])
+
+
+def shards_match_jax(jenv, env, n=2, steps=3, seed=0, joint=False):
+    """``jenv`` (the JAX package's env, its state already split by its
+    ``shard_environment``) carried into the port's global ``env`` of the
+    same batch, which is split into ``n`` in-process shards; both stepped
+    with the same uniform numpy actions, each shard held to its rows of
+    the JAX env's outputs by :func:`held_in_parity` (a ``joint`` scenario
+    by :func:`held_as_joint_parity`)."""
+    from vectorizedmultiagentsimulator_tpu_torch.parallel import (
+        shard_environment,
+    )
+    from vectorizedmultiagentsimulator_tpu_torch.utils import (
+        state_from_numpy,
+    )
+
+    arrays = jax_state_arrays(jenv.state)
+    assert set(arrays["extras"]) == set(env.world.state.extras)
+    state_from_numpy(env, arrays)
+    B = env.num_envs
+    m = B // n
+    shards = [shard_environment(env, rank=r, world_size=n) for r in range(n)]
+    if env.scenario.__class__.__module__.endswith("football"):
+        for r, shard in enumerate(shards):
+            feed_planner_draws(shard, B, slice(r * m, (r + 1) * m))
+    rng = np.random.RandomState(seed)
+    sizes = [env.get_agent_action_size(a) for a in env.agents]
+    diverged = [np.zeros((m,), dtype=bool) for _ in shards]
+    for t in range(steps):
+        acts = [rng.uniform(-1, 1, (B, s)).astype(np.float32) for s in sizes]
+        j_out = jenv.step(acts)
+        for r, shard in enumerate(shards):
+            rows = slice(r * m, (r + 1) * m)
+            got = shard.step([torch.as_tensor(a[rows]) for a in acts])
+            if joint:
+                held_as_joint_parity(t, got, _rows_of(j_out, rows),
+                                     diverged[r])
+            else:
+                held_in_parity(t, got, _rows_of(j_out, rows))

@@ -72,6 +72,16 @@ class Environment:
         self.num_envs = num_envs
         self.batch_dim = num_envs
         self.device = resolve_device(device)
+        # What this env was built with, but for the batch and the device:
+        # parallel.shard_environment builds a rank's env from it.
+        self.build_kwargs = dict(
+            kwargs, max_steps=max_steps,
+            continuous_actions=continuous_actions, seed=seed,
+            dict_spaces=dict_spaces,
+            multidiscrete_actions=multidiscrete_actions,
+            clamp_actions=clamp_actions, grad_enabled=grad_enabled,
+            terminated_truncated=terminated_truncated,
+        )
         self.world = scenario.env_make_world(num_envs, self.device, **kwargs)
         self.world.finalize(seed=seed)
 

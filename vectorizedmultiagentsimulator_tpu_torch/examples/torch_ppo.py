@@ -24,15 +24,34 @@ What differs from the JAX example: PyTorch runs eagerly, so the training
 state lives in a :class:`Trainer` that ``train_step`` updates in place and
 returns (where the JAX example threads a ``carry``); randomness comes from
 one explicit ``torch.Generator`` (the env keeps its own); metrics stay
-device tensors until the caller reads them.  The data-parallel trainer is
-not ported.
+device tensors until the caller reads them.
+
+Data-parallel training (the JAX example's ``_fused_epochs_sharded`` and
+``init_training(mesh=)``): ``init_training(..., mesh=mesh)`` splits the env
+batch over the mesh's ranks, one process a GPU: each rank builds an env of
+its ``num_envs / ranks`` envs.  Each rank rolls out its own envs, seeds its
+env, its trainer's generator (policy noise, epoch shuffle) and its reset
+from ``(seed, rank)`` (``parallel.rank_seed``), and takes rank 0's
+parameters once.  Each
+minibatch of ``mb`` local samples then all-reduces the two advantage sums
+before the kernel, which scales its terms by the global ``norm_n = mb *
+ranks``, and all-reduces the flat gradients with ``(pg, vf, ent)`` after
+it, so every rank takes the same clip and Adam step; ``update_autograd``
+does the same through ``loss_fn``.  The epoch shuffle permutes within a
+rank's samples, as the JAX example's.  ``mean_reward`` is averaged over the
+ranks.  The collectives are ``all_reduce`` and ``broadcast`` only, which
+gloo also carries for CUDA tensors (two ranks that share one card).
 
 Run:  python -m vectorizedmultiagentsimulator_tpu_torch.examples.torch_ppo \\
           [scenario] [num_envs] [iterations]
+      python -m torch.distributed.run --standalone --nproc_per_node=N \\
+          -m vectorizedmultiagentsimulator_tpu_torch.examples.torch_ppo \\
+          [scenario] [num_envs] [iterations]    # N GPUs, NCCL
 """
 from __future__ import annotations
 
 import math
+import os
 import sys
 from typing import List, NamedTuple, Optional
 
@@ -41,6 +60,11 @@ from torch import nn
 
 import vectorizedmultiagentsimulator_tpu_torch as vmt
 from vectorizedmultiagentsimulator_tpu_torch.ops import ppo_update_cuda as puc
+from vectorizedmultiagentsimulator_tpu_torch.parallel import (
+    EnvMesh,
+    init_distributed,
+    rank_seed,
+)
 from vectorizedmultiagentsimulator_tpu_torch.utils import resolve_device
 
 Tensor = torch.Tensor
@@ -187,6 +211,17 @@ def compute_gae(cfg: PPOConfig, rew, done, value, last_value):
     return adv, adv + value
 
 
+def shard_packed(packed_fm: Tensor, num_envs: int, mesh: EnvMesh) -> Tensor:
+    """Rank ``mesh.rank``'s samples of a packed rollout of ``num_envs``
+    envs (``Trainer.pack``'s layout, env fastest): the columns of its envs,
+    ``[D, n / mesh.size]``, in the order that rank's own trainer packs
+    them."""
+    d = packed_fm.shape[0]
+    n = num_envs // mesh.size
+    cols = packed_fm.reshape(d, -1, num_envs)
+    return cols[:, :, mesh.rank * n:(mesh.rank + 1) * n].reshape(d, -1)
+
+
 def clip_by_global_norm_(grads, max_norm: float):
     """Scale ``grads`` in place by ``max_norm / max(norm, max_norm)`` (the
     rule of optax's ``clip_by_global_norm``), on the device."""
@@ -197,11 +232,15 @@ def clip_by_global_norm_(grads, max_norm: float):
 
 class Trainer:
     """The training state and the pieces of one iteration.  Built by
-    :func:`init_training`."""
+    :func:`init_training`.  With a ``mesh`` (an ``EnvMesh``), ``env`` is
+    this rank's env of a split, ``seed`` this rank's, and the updates
+    reduce over the mesh's ranks."""
 
-    def __init__(self, env, cfg: PPOConfig, seed: int):
+    def __init__(self, env, cfg: PPOConfig, seed: int,
+                 mesh: Optional[EnvMesh] = None):
         self.env = env
         self.cfg = cfg
+        self.mesh = mesh
         dev = env.device
         A, B = env.n_agents, env.num_envs
         self.generator = torch.Generator(device=dev)
@@ -256,6 +295,13 @@ class Trainer:
             self.obs_d, self.act_max, cfg.hidden, cfg.trunk_dtype,
             generator=self.generator, device=dev,
         )
+        if mesh is not None:
+            # Every rank starts from rank 0's parameters.
+            params = self.model.ordered_parameters()
+            with torch.no_grad():
+                flat = mesh.broadcast(torch.cat([p.reshape(-1) for p in params]))
+                for p, x in zip(params, self._split(flat)):
+                    p.copy_(x)
         self.optimizer = torch.optim.Adam(
             self.model.ordered_parameters(), lr=cfg.lr, betas=(0.9, 0.999),
             eps=1e-8,
@@ -277,6 +323,8 @@ class Trainer:
             mb=self.mb, clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef,
             ent_coef=cfg.ent_coef,
             n_logits=self.n_cats if self.discrete else 0,
+            # the global minibatch: the ranks' gradients add up to its mean
+            norm_n=0 if mesh is None else self.mb * mesh.size,
         )
         # Which update this trainer runs, decided once.
         self.fused = (
@@ -406,13 +454,38 @@ class Trainer:
             p.grad = g.view_as(p)
         self.optimizer.step()
 
+    def _split(self, flat: Tensor):
+        """A flat tensor cut into pieces shaped like the parameters (and
+        whatever lies past them as one last piece)."""
+        params = self.model.ordered_parameters()
+        sizes = [p.numel() for p in params]
+        pieces = torch.split(flat, sizes + [flat.numel() - sum(sizes)])
+        return [x.view(p.shape) for x, p in zip(pieces, params)] + [pieces[-1]]
+
+    def reduce_update(self, grads, extra: Tensor):
+        """``grads`` (ordered like the parameters, each in its own shape)
+        and the 1-D ``extra`` summed over the mesh's ranks in one
+        ``all_reduce``: ``(grads, extra)``, in the shapes given."""
+        flat = torch.cat([g.reshape(-1) for g in grads] + [extra])
+        *pieces, extra = self._split(self.mesh.all_reduce(flat))
+        return [x.view_as(g) for x, g in zip(pieces, grads)], extra
+
+    def _adv_stats(self, s: Tensor, sq: Tensor, norm: int) -> Tensor:
+        """``(mean, 1 / (std + 1e-8))`` of a minibatch's advantages from
+        their sum and sum of squares, both summed over the ranks first."""
+        if self.mesh is not None:
+            s, sq = self.mesh.all_reduce(torch.stack([s, sq]))
+        mean = s / norm
+        var = torch.clamp_min(sq / norm - mean * mean, 0.0)
+        return torch.stack([mean, 1.0 / (torch.sqrt(var) + 1e-8)])
+
     @torch.no_grad()
     def update_fused(self, packed_fm: Tensor, perms=None) -> Tensor:
         """All epochs and minibatches through ``puc.minibatch_update``;
         ``perms`` (one block permutation per epoch) replaces the
         generator's.  Returns the mean loss."""
         cfg, spec = self.cfg, self.spec
-        lb, mb = spec.lb, spec.mb
+        lb, mb, norm = spec.lb, spec.mb, spec.norm
         nb_tot, nbm = self.n // lb, mb // lb
         # Per-block advantage sums: a minibatch's mean and std come from
         # its blocks' sums, and go to the kernel as two device scalars.
@@ -425,24 +498,36 @@ class Trainer:
             perm = perm.to(torch.int32)
             for i in range(cfg.minibatches):
                 pm = perm[i * nbm:(i + 1) * nbm].contiguous()
-                s = bs[pm].sum()
-                sq = bsq[pm].sum()
-                mean = s / mb
-                var = torch.clamp_min(sq / mb - mean * mean, 0.0)
-                inv_std = 1.0 / (torch.sqrt(var) + 1e-8)
-                grads, (pg, vf, ent) = puc.minibatch_update(
-                    spec, packed_fm, pm, torch.stack([mean, inv_std]),
-                    self.model.kernel_params(),
-                )
-                losses.append(
-                    -pg / mb + cfg.vf_coef * vf / mb - cfg.ent_coef * ent / mb
-                )
+                grads, (pg, vf, ent) = self.minibatch_grads(
+                    packed_fm, pm, bs, bsq)
+                losses.append(-pg / norm + cfg.vf_coef * vf / norm
+                              - cfg.ent_coef * ent / norm)
                 self._apply(grads)
         return torch.stack(losses).mean()
 
-    def loss_fn(self, batch):
+    @torch.no_grad()
+    def minibatch_grads(self, packed_fm: Tensor, pm: Tensor, bs: Tensor,
+                        bsq: Tensor):
+        """One minibatch (the blocks ``pm``) through the kernel: the
+        gradients and ``(pg, vf, ent)`` sums of ``puc.minibatch_update``,
+        summed over the mesh's ranks.  ``bs`` / ``bsq``: each block's
+        advantage sum and sum of squares."""
+        spec = self.spec
+        adv_stats = self._adv_stats(bs[pm].sum(), bsq[pm].sum(), spec.norm)
+        grads, sums = puc.minibatch_update(
+            spec, packed_fm, pm, adv_stats, self.model.kernel_params())
+        if self.mesh is None:
+            return grads, sums
+        grads, sums = self.reduce_update(grads, torch.stack(sums))
+        return grads, tuple(sums)
+
+    def loss_fn(self, batch, adv_stats: Optional[Tensor] = None,
+                norm: Optional[int] = None):
         """The PPO loss of a batch-major minibatch through the model, for
-        autograd."""
+        autograd.  With ``adv_stats`` (``(mean, 1 / (std + 1e-8))`` of the
+        global minibatch) and ``norm`` (its size), the advantages are
+        normalized by those and the means are sums over ``norm``: one
+        rank's share of the global loss."""
         cfg = self.cfg
         mean, log_std, value = self.model(batch["obs"])
         if self.discrete:
@@ -452,60 +537,85 @@ class Trainer:
                 dim=-1,
             )
             logp = torch.gather(lg, -1, batch["action"][..., None])[..., 0].sum(-1)
-            ent_term = -(torch.exp(lg) * lg).sum(-1).sum(-1).mean()
+            ent = -(torch.exp(lg) * lg).sum(-1).sum(-1)
         else:
             logp = gaussian_logp(mean, log_std, batch["action"], batch["mask"])
-            ent_term = torch.mean(
-                torch.sum(
-                    (log_std + 0.5 * math.log(2 * math.pi * math.e))
-                    * batch["mask"],
-                    -1,
-                )
+            ent = torch.sum(
+                (log_std + 0.5 * math.log(2 * math.pi * math.e))
+                * batch["mask"],
+                -1,
             )
         ratio = torch.exp(logp - batch["logp"])
         adv = batch["adv"]
-        adv = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
-        pg = -torch.minimum(
+        if adv_stats is None:
+            adv = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+
+            def avg(x):
+                return x.mean()
+        else:
+            adv = (adv - adv_stats[0]) * adv_stats[1]
+
+            def avg(x):
+                return x.sum() / norm
+        pg = -avg(torch.minimum(
             ratio * adv,
             torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv,
-        ).mean()
-        vf = 0.5 * torch.mean((value - batch["ret"]) ** 2)
-        return pg + cfg.vf_coef * vf - cfg.ent_coef * ent_term
+        ))
+        vf = 0.5 * avg((value - batch["ret"]) ** 2)
+        return pg + cfg.vf_coef * vf - cfg.ent_coef * avg(ent)
+
+    def autograd_grads(self, x: Tensor):
+        """One minibatch's gradients (ordered like the parameters) and loss
+        through ``loss_fn`` and autograd; ``x``: its samples, batch-major
+        ``[mb, D]``.  Under a mesh the advantage sums, gradients and loss
+        are summed over the ranks."""
+        spec = self.spec
+        od, o = spec.obs_d, spec.obs_d + spec.act_w
+        action = x[:, od:o]
+        batch = {
+            "obs": x[:, :od],
+            "action": action.long() if self.discrete else action,
+            "logp": x[:, o],
+            "adv": x[:, o + 1],
+            "ret": x[:, o + 2],
+            "mask": x[:, o + 3:],
+        }
+        if self.mesh is None:
+            loss = self.loss_fn(batch)
+        else:
+            adv = batch["adv"]
+            norm = x.shape[0] * self.mesh.size
+            loss = self.loss_fn(batch, self._adv_stats(
+                adv.sum(), (adv * adv).sum(), norm), norm)
+        params = self.model.ordered_parameters()
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        loss = loss.detach()
+        if self.mesh is not None:
+            grads, loss = self.reduce_update(grads, loss.reshape(1))
+            loss = loss[0]
+        return grads, loss
 
     def update_autograd(self, packed_fm: Tensor, perms=None) -> Tensor:
         """All epochs and minibatches through ``loss_fn`` and autograd, the
         shuffle at blocks of ``G`` samples (``G`` the largest power of two
         up to 64 that divides the minibatch)."""
-        cfg, spec = self.cfg, self.spec
+        cfg = self.cfg
         n, mb = self.n, self.mb
         G = 1
         while G < 64 and mb % (2 * G) == 0:
             G *= 2
         mbb = mb // G
-        od, o = spec.obs_d, spec.obs_d + spec.act_w
         within = torch.arange(G, device=packed_fm.device)
-        params = self.model.ordered_parameters()
         losses = []
         for e in range(cfg.epochs):
             perm = self._permutation(n // G) if perms is None else perms[e]
             for i in range(cfg.minibatches):
                 blocks = perm[i * mbb:(i + 1) * mbb].long()
                 cols = (blocks[:, None] * G + within).reshape(-1)
-                x = packed_fm[:, cols].t()  # [mb, D]
-                action = x[:, od:o]
-                batch = {
-                    "obs": x[:, :od],
-                    "action": action.long() if self.discrete else action,
-                    "logp": x[:, o],
-                    "adv": x[:, o + 1],
-                    "ret": x[:, o + 2],
-                    "mask": x[:, o + 3:],
-                }
-                loss = self.loss_fn(batch)
-                grads = torch.autograd.grad(loss, params, allow_unused=True)
-                grads = [torch.zeros_like(p) if g is None else g
-                         for p, g in zip(params, grads)]
-                losses.append(loss.detach())
+                grads, loss = self.autograd_grads(packed_fm[:, cols].t())
+                losses.append(loss)
                 with torch.no_grad():
                     self._apply(grads)
         return torch.stack(losses).mean()
@@ -534,7 +644,11 @@ class Trainer:
         device tensors."""
         packed_fm, traj = self.collect()
         loss = self.update(packed_fm)
-        return {"loss": loss, "mean_reward": traj["rew"].mean()}
+        mean_reward = traj["rew"].mean()
+        if self.mesh is not None:
+            mean_reward = self.mesh.all_reduce(
+                mean_reward.reshape(1))[0] / self.mesh.size
+        return {"loss": loss, "mean_reward": mean_reward}
 
 
 def train_step(trainer: Trainer):
@@ -546,30 +660,50 @@ def train_step(trainer: Trainer):
 
 def init_training(scenario="dispersion", num_envs=512, seed=0,
                   cfg: PPOConfig = PPOConfig(), device=None,
-                  **scenario_kwargs):
+                  mesh: Optional[EnvMesh] = None, **scenario_kwargs):
     """Build env, model and optimizer: ``(env, train_step, trainer)``.
 
     ``device=None`` is the CUDA card (and raises without one);
     ``device="cpu"`` trains on the CPU, where the minibatch update runs its
-    plain PyTorch version."""
+    plain PyTorch version.  ``mesh``: the ``num_envs`` envs are split over
+    its ranks (on the mesh's device, if it names one), and ``env`` is this
+    rank's ``num_envs / ranks``, built at that batch with the rank's seed
+    (``rank_seed``): the trainer's first reset overwrites every row, so
+    the global env is never built (``shard_environment`` splits an env
+    whose rows matter)."""
+    if mesh is not None:
+        if num_envs % mesh.size:
+            raise ValueError(
+                f"num_envs ({num_envs}) must be divisible by the number of"
+                f" mesh devices ({mesh.size})")
+        if mesh.device is not None:
+            device = mesh.device
+        num_envs //= mesh.size
+        seed = rank_seed(seed, mesh.rank)
     device = resolve_device(device)
     env = vmt.make_env(scenario, num_envs=num_envs, device=device, seed=seed,
                        **scenario_kwargs)
-    return env, train_step, Trainer(env, cfg, seed)
+    return env, train_step, Trainer(env, cfg, seed, mesh)
 
 
 def main():
     scenario = sys.argv[1] if len(sys.argv) > 1 else "dispersion"
     num_envs = int(sys.argv[2]) if len(sys.argv) > 2 else 512
     iters = int(sys.argv[3]) if len(sys.argv) > 3 else 50
-    env, step, trainer = init_training(scenario, num_envs)
+    # Under torch.distributed.run: one rank a GPU over NCCL, the envs split.
+    mesh = (init_distributed("nccl") if "WORLD_SIZE" in os.environ
+            else None)
+    env, step, trainer = init_training(scenario, num_envs, mesh=mesh)
     for it in range(iters):
         trainer, metrics = step(trainer)
-        print(
-            f"iter {it:3d}  loss {float(metrics['loss']):+.4f}"
-            f"  mean_reward {float(metrics['mean_reward']):+.5f}",
-            flush=True,
-        )
+        if mesh is None or mesh.rank == 0:
+            print(
+                f"iter {it:3d}  loss {float(metrics['loss']):+.4f}"
+                f"  mean_reward {float(metrics['mean_reward']):+.5f}",
+                flush=True,
+            )
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

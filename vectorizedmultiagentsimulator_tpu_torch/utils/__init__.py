@@ -245,6 +245,24 @@ class ScenarioUtils:
         return max(1, min(most, -(-draws // K)))
 
     @staticmethod
+    def find_random_pos_for_entity(
+        occupied_positions: Tensor,
+        env_index,
+        world,
+        min_dist_between_entities: float,
+        x_bounds: Tuple[float, float],
+        y_bounds: Tuple[float, float],
+        disable_warn: bool = False,
+    ) -> Tensor:
+        """One new position ``[B, 1, 2]`` clear of ``occupied_positions``
+        (reference utils.py:271-319): :meth:`find_random_positions_for_
+        entities` for one entity, its rounds set by ``env_index``."""
+        return ScenarioUtils.find_random_positions_for_entities(
+            occupied_positions, 1, world, min_dist_between_entities,
+            x_bounds, y_bounds, env_index=env_index,
+        )
+
+    @staticmethod
     @torch.no_grad()
     def find_random_positions_for_entities(
         occupied_positions: Tensor,
