@@ -227,7 +227,25 @@ Phases, one line each:
      PPOConfig defaults, its wall, the ms of a minibatch's all-reduces, and
      the parameters bit-identical on the two ranks; (c) an NCCL world of one
      rank: one data-parallel iteration equal to the plain Trainer's to the
-     bit, with no host sync (torch.cuda.set_sync_debug_mode("error")).
+     bit, with no host sync (torch.cuda.set_sync_debug_mode("error"));
+  9. the functional API (Environment.state, step_fn, reset_at_fn) at
+     transport@30k, navigation@30k, football 5v5@30k and road_traffic map
+     '2'@10k: 10 step_fn calls from env.state with a generator equal to
+     10 env.step calls from the same state and generator state to the bit
+     (outputs, every state leaf, the generator), the input states (of the
+     step_fn calls and of a reset_at_fn of the last step's dones and every
+     third env) equal to clones taken before, two branches with equal
+     generator states equal, reset_at_fn equal to env.reset_at; one
+     step_fn's launches (one physics kernel, one ray cast on navigation,
+     one planner on football, one of each road kernel on map '2'); a
+     step_fn and a masked reset_at_fn, the generators' states read and
+     set, with no host sync; ms a step_fn call beside an env.step (CUDA
+     events, in turns) and, on map '2', of the copy of its two in-place
+     buffers that a step_fn from a state it does not own makes; a CUDA
+     graph of 10 step_fn calls at transport@30k equal to the eager calls
+     to the bit, its kernel nodes counted by name; the gradient of a
+     3-call loss with respect to the initial pos and vel at 1024 envs of
+     transport and navigation, card against CPU port within GRAD_TOL.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -546,6 +564,18 @@ SPLIT_PATHS = (("transport", N_ENVS), ("navigation", N_ENVS),
 SPLIT_STEPS = 10
 DP_CELL = ("transport", 4096)
 DP_TIMEOUT_S = 300
+# Phase 9.  The functional API (Environment.state, step_fn, reset_at_fn) on
+# these main paths at their own envs over FUNC_STEPS steps; a CUDA graph of
+# FUNC_STEPS step_fn calls at FUNC_GRAPH_PATH; the gradient with respect to
+# the initial pos and vel through FUNC_STEPS_GRAD step_fn calls at
+# GRAD_ENVS envs on FUNC_GRAD_PATHS, card against CPU at GRAD_TOL; ms a
+# call over FUNC_TIME_ITERS calls.
+FUNC_PATHS = ("transport", "navigation", "football", "road_traffic_map2")
+FUNC_STEPS = 10
+FUNC_GRAPH_PATH = "transport"
+FUNC_GRAD_PATHS = ("transport", "navigation")
+FUNC_STEPS_GRAD = 3
+FUNC_TIME_ITERS = 20
 
 
 _T0 = time.perf_counter()
@@ -2340,7 +2370,6 @@ def graph_vs_eager(path, envs, steps=GRAPH_STEPS, trace=True):
     from vectorizedmultiagentsimulator_tpu_torch import ops
     from vectorizedmultiagentsimulator_tpu_torch.parallel import rollout
     from vectorizedmultiagentsimulator_tpu_torch.parallel.rollout import (
-        _clone_state,
         _flatten,
         _tensors,
     )
@@ -2354,14 +2383,14 @@ def graph_vs_eager(path, envs, steps=GRAPH_STEPS, trace=True):
         # Map '2': the rollouts start after a reset that replayed states.
         label += f" ({replayed_state(env)} envs replayed a recorded state)"
     w = env.world
-    start, world_rng = _clone_state(w.state), w.generator.get_state()
+    start, world_rng = w.state.clone(), w.generator.get_state()
     g = torch.Generator(device="cuda").manual_seed(5)
     policy_rng = g.get_state()
     torch.cuda.synchronize()
     runs = {}
     with kept_graphs():
         for graph in (True, False):
-            w.bind(_clone_state(start))
+            w.bind(start.clone())
             w.generator.set_state(world_rng)
             g.set_state(policy_rng)
             runs[graph] = []
@@ -2369,7 +2398,7 @@ def graph_vs_eager(path, envs, steps=GRAPH_STEPS, trace=True):
             def call():
                 traj = rollout(env, n_steps=steps, generator=g,
                                graph=graph)[1]
-                runs[graph].append((_flatten(traj)[0], _clone_state(w.state),
+                runs[graph].append((_flatten(traj)[0], w.state.clone(),
                                     w.generator.get_state(), g.get_state()))
 
             if graph:
@@ -3297,6 +3326,271 @@ def phase_8():
     }
 
 
+def path_of(name):
+    return next(p for p in MAIN_PATHS if p[0] == name)
+
+
+def functional_path(name):
+    """Phase 9 on one path: torch_helpers.functional_checks over FUNC_STEPS
+    steps (step_fn equal to env.step to the bit, outputs and every state
+    leaf; input states unchanged; two branches equal; reset_at_fn equal to
+    env.reset_at), one step_fn's launches against the path's a step, a
+    step_fn and a masked reset_at_fn with no host sync (the generators'
+    states read and set inside the check too), and the ms of a step_fn
+    call beside an env.step's (CUDA events); on map '2' the ms of the
+    copies of its two in-place buffers that a step_fn from a state it
+    does not own makes.  Returns ({kernel: launches}, figures)."""
+    import torch
+    from torch_helpers import (
+        differing_leaves,
+        functional_checks,
+        generator_at,
+        reset_mask,
+    )
+    from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        launch_counts,
+        set_launch_counts,
+    )
+
+    _, envs, _, _, casts, plans, road = path_of(name)
+    label = f"{name}@{envs}"
+    env = make_path_env(name)
+    for a in random_actions(env, 3, seed=21):
+        env.step(a)
+    if recorded_rows(env) is not None:
+        label += f" ({replayed_state(env)} envs replayed a recorded state)"
+    actions = random_actions(env, FUNC_STEPS, seed=22)
+    torch.cuda.synchronize()
+    set_launch_counts(dict.fromkeys(launch_counts(), 0))
+    s0, s_end, outs = functional_checks(env, actions)
+    launches = launch_counts()
+
+    state = env.state
+    state_copy = state.clone()
+    g0 = env.world.generator.get_state()
+    torch.cuda.synchronize()
+    set_launch_counts(dict.fromkeys(launch_counts(), 0))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g = generator_at(g0, "cuda")
+        new, o = env.step_fn(state, actions[0], generator=g)
+        one = launch_counts()
+        env.reset_at_fn(new, reset_mask(env, o), generator=g)
+        g.set_state(g0)
+        g.get_state()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = {"physics_step": 1, "raycast": casts, "football_policy": plans,
+            "agent_geometry": road[0], "pair_collisions": road[1],
+            "neighbor_obs": road[2]}
+    got = {k: one.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"[9] {label}: a step_fn launched {got},"
+                             f" expected {want}")
+    for k, v in one.items():
+        launches[k] = launches.get(k, 0) + v
+
+    step_ms, fn_ms = [], []
+    for turn in (step_ms, fn_ms, fn_ms, step_ms):
+        if turn is step_ms:
+            env.state = state
+            turn.append(cuda_time_ms(lambda: env.step(actions[0]),
+                                     FUNC_TIME_ITERS))
+        else:
+            turn.append(cuda_time_ms(
+                lambda: env.step_fn(state, actions[0]), FUNC_TIME_ITERS))
+    figures = {"step_fn_ms": fn_ms, "step_ms": step_ms}
+    copy = ""
+    if recorded_rows(env) is not None:
+        bufs = [state.extras[f"scenario.{k}"] for k in ("state_hist",
+                                                        "isb_buf")]
+        mb = sum(b.numel() * b.element_size() for b in bufs) / 1e6
+        copy_ms = cuda_time_ms(lambda: [b.clone() for b in bufs],
+                               FUNC_TIME_ITERS)
+        figures.update(copy_ms=copy_ms, copy_mb=mb)
+        copy = (f"; a step_fn from a state it does not own copies the ring"
+                f" and the initial-state buffer first: {mb:.1f} MB,"
+                f" {copy_ms:.4f} ms")
+    bad = differing_leaves(state, state_copy)
+    assert not bad, f"[9] {label}: the timed calls changed a state: {bad}"
+    log(f"[9] {label}: {FUNC_STEPS} step_fn calls equal to env.step to the"
+        f" bit (outputs, every state leaf, the generator), the input states"
+        f" unchanged, two branches equal, reset_at_fn equal to env.reset_at;"
+        f" a step_fn launched {got}, a step_fn and a masked reset_at_fn no"
+        f" host sync; ms a call (CUDA events, {FUNC_TIME_ITERS} calls, in"
+        f" turns): step_fn {fn_ms[0]:.4f} {fn_ms[1]:.4f}, env.step"
+        f" {step_ms[0]:.4f} {step_ms[1]:.4f}{copy}")
+    del env, s0, s_end, outs, state, state_copy, new
+    return launches, figures
+
+
+def step_fn_graph():
+    """Phase 9: FUNC_STEPS step_fn calls at FUNC_GRAPH_PATH captured as one
+    CUDA graph (the generator registered through
+    rollout.register_generators) against the same calls eagerly: every
+    output and the final state equal to the bit, and the graph's kernel
+    nodes by name (torch_helpers.graph_kernels) one physics kernel a
+    call.  Returns the capture's launch counts."""
+    import torch
+    from torch_helpers import (
+        differing_leaves,
+        generator_at,
+        graph_kernels,
+        kept_graphs,
+    )
+    from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        launch_counts,
+        set_launch_counts,
+    )
+    from vectorizedmultiagentsimulator_tpu_torch.parallel.rollout import (
+        register_generators,
+    )
+
+    name = FUNC_GRAPH_PATH
+    env = make_path_env(name)
+    for a in random_actions(env, 3, seed=23):
+        env.step(a)
+    actions = random_actions(env, FUNC_STEPS, seed=24)
+    static = env.state.clone()
+    g0 = env.world.generator.get_state()
+
+    def calls(state, generator):
+        outs = []
+        for a in actions:
+            state, o = env.step_fn(state, a, generator=generator)
+            outs.append(o)
+        return state, outs
+
+    with torch.no_grad():
+        want = calls(static, generator_at(g0, "cuda"))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            env.step_fn(static, actions[0], generator=generator_at(g0, "cuda"))
+        torch.cuda.current_stream().wait_stream(side)
+        g = generator_at(g0, "cuda")
+        set_launch_counts(dict.fromkeys(launch_counts(), 0))
+        with kept_graphs():
+            graph = torch.cuda.CUDAGraph()
+            register_generators(graph, [g])
+            env.world.drop_cast_caches()
+            with torch.cuda.graph(graph):
+                got = calls(static, g)
+            env.world.drop_cast_caches()
+            captured = launch_counts()
+            g.set_state(g0)
+            graph.replay()
+            torch.cuda.synchronize()
+            nodes = graph_kernels(graph)
+            bad = differing_leaves(got, want)
+            del got
+    assert not bad, f"[9] step_fn graph {name}: differs from eager: {bad}"
+    if nodes.get("physics_step") != FUNC_STEPS:
+        raise AssertionError(f"[9] step_fn graph {name}: kernel nodes {nodes}")
+    log(f"[9] a CUDA graph of {FUNC_STEPS} step_fn calls at"
+        f" {name}@{env.num_envs}: every output and the final state equal to"
+        f" the eager calls to the bit; kernel nodes by name {nodes}")
+    return captured
+
+
+def state_loss(env, actions):
+    """``((pos, vel), loss)``: the rollout loss (the mean of every
+    observation and reward, each step) over step_fn calls from env.state,
+    with its initial pos and vel as leaves that require a gradient."""
+    s0 = env.state
+    leaves = tuple(x.clone().requires_grad_(True) for x in (s0.pos, s0.vel))
+    state, total = s0.replace(pos=leaves[0], vel=leaves[1]), 0.0
+    for a in actions:
+        state, (obs, rews, _, _) = env.step_fn(state, a)
+        total = total + sum(o.mean() for o in obs) + sum(
+            r.mean() for r in rews)
+    return leaves, total
+
+
+def state_grad_vs_cpu(name):
+    """Phase 9: the gradient of state_loss with respect to the initial pos
+    and vel on the card (the kernels' forwards) against the CPU port's
+    from the same state and actions, as a share of the CPU gradient's
+    largest entry (GRAD_TOL).  Returns (forward launches, error)."""
+    import torch
+    from vectorizedmultiagentsimulator_tpu_torch.ops import (
+        launch_counts,
+        set_launch_counts,
+    )
+    from vectorizedmultiagentsimulator_tpu_torch.utils import (
+        state_from_numpy,
+        state_to_numpy,
+    )
+
+    kwargs = CPU_COMPARE_KWARGS.get(name, {})
+    env_g = make_path_env(name, GRAD_ENVS, grad_enabled=True, **kwargs)
+    env_c = make_path_env(name, GRAD_ENVS, device="cpu", grad_enabled=True,
+                          **kwargs)
+    state_from_numpy(env_c, state_to_numpy(env_g))
+    actions = random_actions(env_g, FUNC_STEPS_GRAD, seed=25)
+    torch.cuda.synchronize()
+    set_launch_counts(dict.fromkeys(launch_counts(), 0))
+    leaves, total = state_loss(env_g, actions)
+    forward = launch_counts()
+    grads = torch.autograd.grad(total, leaves)
+    torch.cuda.synchronize()
+    assert launch_counts() == forward, f"{name}: the backward launched kernels"
+    leaves, total = state_loss(env_c, [[a.cpu() for a in acts]
+                                       for acts in actions])
+    refs = torch.autograd.grad(total, leaves)
+    errs = []
+    for f, got, ref in zip(("pos", "vel"), grads, refs):
+        got = got.cpu()
+        scale = float(ref.abs().max())
+        assert bool(torch.isfinite(got).all()) and scale > 0, (name, f)
+        errs.append(float((got - ref).abs().max()) / scale)
+    need = {"physics_step": FUNC_STEPS_GRAD,
+            "raycast": FUNC_STEPS_GRAD * path_of(name)[4]}
+    launched = {k: forward.get(k, 0) for k in need}
+    log(f"[9] state gradient {name}@{GRAD_ENVS} ({FUNC_STEPS_GRAD} step_fn"
+        f" calls, with respect to the initial pos and vel): card vs cpu max"
+        f" |diff| {errs[0]:.3e} and {errs[1]:.3e} of the largest entry"
+        f" (held at {GRAD_TOL:g}); forward launches {launched}, backward"
+        f" none")
+    assert launched == need, f"{name}: forward launches {launched}"
+    assert max(errs) <= GRAD_TOL, f"{name}: card state gradient != cpu"
+    return forward, max(errs)
+
+
+def phase_9(smi):
+    """Phase 9: the functional API on the card.  Returns (launches of the
+    functional calls, figures)."""
+    import torch
+
+    t0 = time.perf_counter()
+    launches, figures = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for name in FUNC_PATHS:
+        counts, figures[name] = functional_path(name)
+        add(counts)
+        torch.cuda.empty_cache()
+    add(step_fn_graph())
+    torch.cuda.empty_cache()
+    grad_errs = {}
+    for name in FUNC_GRAD_PATHS:
+        counts, grad_errs[name] = state_grad_vs_cpu(name)
+        add(counts)
+    figures["state_grad_max_rel_err"] = grad_errs
+    seconds = time.perf_counter() - t0
+    figures["seconds"] = seconds
+    log(f"[9] phase 9 on {smi}: step_fn ms a call "
+        + ", ".join(f"{n} {figures[n]['step_fn_ms'][0]:.4f} (env.step"
+                    f" {figures[n]['step_ms'][0]:.4f})" for n in FUNC_PATHS)
+        + f"; map '2''s buffer copy"
+        f" {figures['road_traffic_map2']['copy_ms']:.4f} ms; launches"
+        f" {launches}; {seconds:.1f} s")
+    return launches, figures
+
+
 def main():
     import torch
 
@@ -3714,6 +4008,10 @@ def main():
     launches_8, data_parallel = phase_8()
     phase_time(8)
 
+    # ---- 9: the functional API ---- #
+    launches_9, functional = phase_9(smi)
+    phase_time(9)
+
     line = {"kernels": [
         {
             "name": "physics_step",
@@ -3847,6 +4145,10 @@ def main():
         # Phase 8's launches: the gradient forwards, and each worker's
         # sharded steps and data-parallel training.
         entry["phase_8_launches"] = launches_8.get(entry["name"], 0)
+        # Phase 9's: the functional calls, the step_fn graph's capture and
+        # the state gradients' forwards.
+        entry["phase_9_launches"] = launches_9.get(entry["name"], 0)
+    line["functional"] = functional
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -17,6 +17,9 @@ from torch_helpers import cpu_env  # noqa: E402
 
 import vectorizedmultiagentsimulator_tpu as vmt_jax  # noqa: E402
 import vectorizedmultiagentsimulator_tpu_torch as vmt  # noqa: E402
+from vectorizedmultiagentsimulator_tpu_torch.scenarios import (  # noqa: E402
+    names as scenario_names,
+)
 from vectorizedmultiagentsimulator_tpu.utils import (  # noqa: E402
     checkpoint as jax_checkpoint,
 )
@@ -29,7 +32,7 @@ from vectorizedmultiagentsimulator_tpu_torch.utils import (  # noqa: E402
 
 B = 4
 N_STEPS = 4
-CASES = {name: {} for name in vmt.scenarios}
+CASES = {name: {} for name in scenario_names()}
 CASES["road_traffic map 2"] = dict(map_type="2")
 CASES["road_traffic map 3"] = dict(map_type="3", n_agents=10)
 

@@ -20,6 +20,7 @@ from torch_helpers import (
     JOINTS_STATIC_ROTATION,
     MANY_ENTITIES,
     build_world,
+    functional_checks,
     geometry_diff,
     graph_kernels,
     jittered_inputs,
@@ -329,7 +330,6 @@ def test_graph_rollout_matches_eager(cuda, scenario, kwargs, casts, plans,
     from vectorizedmultiagentsimulator_tpu_torch import ops
     from vectorizedmultiagentsimulator_tpu_torch.parallel import rollout
     from vectorizedmultiagentsimulator_tpu_torch.parallel.rollout import (
-        _clone_state,
         _flatten,
         _tensors,
     )
@@ -338,13 +338,13 @@ def test_graph_rollout_matches_eager(cuda, scenario, kwargs, casts, plans,
                              **kwargs)
     env.step(env.get_random_actions())
     w = env.world
-    start, world_rng = _clone_state(w.state), w.generator.get_state()
+    start, world_rng = w.state.clone(), w.generator.get_state()
     g = torch.Generator(device="cuda").manual_seed(3)
     policy_rng = g.get_state()
     runs = {}
     with kept_graphs():
         for graph in (True, False):
-            w.bind(_clone_state(start))
+            w.bind(start.clone())
             w.generator.set_state(world_rng)
             g.set_state(policy_rng)
             runs[graph] = []
@@ -355,7 +355,7 @@ def test_graph_rollout_matches_eager(cuda, scenario, kwargs, casts, plans,
                 # the graph's final state lives in buffers the next call
                 # of the same graph writes over: keep a copy
                 runs[graph].append((_flatten(traj)[0],
-                                    _tensors(_clone_state(w.state)),
+                                    _tensors(w.state.clone()),
                                     w.generator.get_state(), g.get_state()))
 
             before = ops.launch_counts()
@@ -904,3 +904,34 @@ def test_road_traffic_launches_no_sync(cuda, kwargs, agent_geometry):
             for k in road} == expected
     assert all(o.shape == (B, 32) and bool(torch.isfinite(o).all())
                for o in obs)
+
+
+@pytest.mark.parametrize("scenario,kwargs,launches", [
+    ("navigation", {}, {"physics_step": 1, "raycast": 1}),
+    ("football", dict(n_blue_agents=5, n_red_agents=5),
+     {"physics_step": 1, "football_policy": 1}),
+    ("road_traffic", dict(map_type="2"),
+     {"physics_step": 1, "agent_geometry": 1, "pair_collisions": 1,
+      "neighbor_obs": 1})])
+def test_functional_api_on_the_card(cuda, scenario, kwargs, launches):
+    """``torch_helpers.functional_checks`` on the card over 3 steps
+    (``step_fn`` equal to ``env.step`` to the bit, input states unchanged,
+    two branches equal), then one ``step_fn`` with no host sync and the
+    path's launches."""
+    from vectorizedmultiagentsimulator_tpu_torch import ops
+
+    env = vmt_torch.make_env(scenario, num_envs=B, device="cuda", seed=0,
+                             **kwargs)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    actions = [env.get_random_actions(g) for _ in range(3)]
+    functional_checks(env, actions)
+    state = env.state
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        env.step_fn(state, actions[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in launches} == launches

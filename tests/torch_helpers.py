@@ -1108,3 +1108,114 @@ def shards_match_jax(jenv, env, n=2, steps=3, seed=0, joint=False):
                                      diverged[r])
             else:
                 held_in_parity(t, got, _rows_of(j_out, rows))
+
+
+# --------------------------------------------------------------------- #
+# The functional API (Environment.state, step_fn, reset_fn, reset_at_fn)
+# --------------------------------------------------------------------- #
+def tree_leaves(tree) -> list:
+    """``(path, tensor)`` of every tensor in nested dicts, lists, tuples
+    and WorldStates (a state's fields, then its extras)."""
+    from vectorizedmultiagentsimulator_tpu_torch.core.state import WorldState
+
+    if isinstance(tree, torch.Tensor):
+        return [("", tree)]
+    if isinstance(tree, WorldState):
+        tree = dict({f: getattr(tree, f) for f in STATE_FIELDS},
+                    extras=tree.extras)
+    items = (tree.items() if isinstance(tree, dict) else enumerate(tree))
+    return [(f"{k}/{p}", x) for k, v in items for p, x in tree_leaves(v)]
+
+
+def differing_leaves(a, b) -> list:
+    """The paths at which ``a`` and ``b`` (tensor trees, ``tree_leaves``)
+    differ: in structure, shape, dtype or a bit (a NaN equals a NaN)."""
+    la, lb = dict(tree_leaves(a)), dict(tree_leaves(b))
+    bad = sorted(set(la) ^ set(lb))
+    for k in la.keys() & lb.keys():
+        x, y = la[k], lb[k]
+        if x.shape != y.shape or x.dtype != y.dtype:
+            bad.append(k)
+        elif x.is_floating_point():
+            if not bool(((x == y) | (x.isnan() & y.isnan())).all()):
+                bad.append(k)
+        elif not torch.equal(x, y):
+            bad.append(k)
+    return bad
+
+
+def generator_at(state, device):
+    """A new ``torch.Generator`` on ``device`` in ``state``."""
+    g = torch.Generator(device=device)
+    g.set_state(state)
+    return g
+
+
+def reset_mask(env, outs):
+    """A step's dones (terminated or truncated with
+    ``terminated_truncated``) and every third env."""
+    dones = outs[2] | outs[3] if env.terminated_truncated else outs[2]
+    every_third = torch.arange(env.num_envs, device=env.device) % 3 == 0
+    return dones | every_third
+
+
+def functional_checks(env, actions):
+    """The functional API from ``env``'s current state over the action
+    lists ``actions`` (one a step), raising AssertionError where:
+
+    * ``step_fn`` (its own generator, from the world generator's state)
+      or ``reset_at_fn`` (mask: the last step's dones and every third
+      env) changes its input state (leaves and extras keys), or the state
+      the world holds;
+    * two ``step_fn`` branches with equal generator states differ;
+    * ``env.state = s`` then ``env.step`` differs from the ``step_fn``
+      chain (outputs, final state, generator state) or changes ``s``;
+      ``env.reset_at`` differs from ``reset_at_fn``.
+
+    Returns ``(s0, final state, outputs of each step)`` of the chain."""
+    dev = env.device
+    held = env.world.state
+    held_copy = held.clone()
+    s0 = env.state
+    s0_copy = s0.clone()
+    g0 = env.world.generator.get_state()
+    runs = []
+    for _ in range(2):
+        g = generator_at(g0, dev)
+        s, outs = s0, []
+        for a in actions:
+            s, o = env.step_fn(s, a, generator=g)
+            outs.append(o)
+        runs.append((s, outs, g.get_state()))
+    bad = differing_leaves(s0, s0_copy)
+    assert not bad, f"step_fn changed its input state: {bad}"
+    bad = differing_leaves(runs[0][:2], runs[1][:2])
+    assert not bad, f"two step_fn branches differ: {bad}"
+    assert torch.equal(runs[0][2], runs[1][2])
+    s_end, outs, g_end = runs[0]
+    mask = reset_mask(env, outs[-1])
+    s_end_copy = s_end.clone()
+    r_state, r_outs = env.reset_at_fn(s_end, mask,
+                                      generator=generator_at(g_end, dev))
+    bad = differing_leaves(s_end, s_end_copy)
+    assert not bad, f"reset_at_fn changed its input state: {bad}"
+    assert env.world.state is held, "a functional call rebound the world"
+    bad = differing_leaves(held, held_copy)
+    assert not bad, f"a functional call changed the world's state: {bad}"
+
+    env.state = s0
+    env.world.generator.set_state(g0)
+    eager = [env.step(a) for a in actions]
+    bad = differing_leaves(eager, [list(o) for o in outs])
+    assert not bad, f"env.step != step_fn: outputs {bad}"
+    bad = differing_leaves(env.world.state, s_end)
+    assert not bad, f"env.step != step_fn: state {bad}"
+    assert torch.equal(env.world.generator.get_state(), g_end)
+    bad = differing_leaves(s0, s0_copy)
+    assert not bad, f"env.state = s, env.step changed s: {bad}"
+    got = env.reset_at(mask, return_observations=True, return_info=True,
+                       return_dones=True)
+    bad = differing_leaves(got, list(r_outs))
+    bad += differing_leaves(env.world.state, r_state)
+    assert not bad, f"env.reset_at != reset_at_fn: {bad}"
+    return s0, s_end, outs

@@ -17,14 +17,30 @@ across field by field (``utils.state_from_numpy``):
 All float fields are float32.  The world replaces a field with a new
 tensor on every write (no in-place updates), so tensors that autograd
 saved for a backward pass are never modified under it.  Randomness is not
-part of the state: it comes from the world's ``torch.Generator``.
+part of the state: it comes from the world's ``torch.Generator`` (or the
+one a functional call is given, ``Environment.step_fn``).
+
+``replace`` is the JAX pytree's ``.replace``: a new object and a new
+``extras`` dict over the same tensors.  ``clone`` copies every tensor.
+
+The one exception to "no in-place updates": road_traffic on map '2'
+writes its history ring ``scenario.state_hist`` and its initial-state
+buffer ``scenario.isb_buf`` in place (indexed writes into the same
+storage, so a captured step neither reallocates nor rereads them), through
+``World.own_extra``.  A state the world holds as borrowed (given to a
+functional call, set through ``Environment.state``, or read from it) has
+such a buffer copied at its first write, so the caller's tensors never
+change under it.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict
 
 import torch
+
+from vectorizedmultiagentsimulator_tpu_torch.utils import STATE_FIELDS
 
 
 @dataclass
@@ -40,6 +56,19 @@ class WorldState:
     action_c: torch.Tensor
     steps: torch.Tensor
     extras: Dict[str, torch.Tensor] = field(default_factory=dict)
+
+    def replace(self, **fields) -> "WorldState":
+        """A new state with ``fields`` set and every other field's tensor
+        shared; ``extras`` is a new dict (of the same tensors unless given)."""
+        fields.setdefault("extras", dict(self.extras))
+        return dataclasses.replace(self, **fields)
+
+    def clone(self) -> "WorldState":
+        """A state of copies of every tensor (autograd records the copies)."""
+        return WorldState(
+            **{f: getattr(self, f).clone() for f in STATE_FIELDS},
+            extras={k: v.clone() for k, v in self.extras.items()},
+        )
 
     @staticmethod
     def zeros(

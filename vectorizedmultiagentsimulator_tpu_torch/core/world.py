@@ -137,6 +137,8 @@ class World:
 
         self._finalized = False
         self._state: Optional[WorldState] = None
+        # extras key -> id of the tensor a borrowed state lends (own_extra)
+        self._borrowed: Dict[str, int] = {}
         self.generator: Optional[torch.Generator] = None
         # Whether step() runs the CUDA kernel (physics_cuda.step_supported);
         # set at finalize and pinned again by the Environment after its
@@ -501,9 +503,52 @@ class World:
     def state(self) -> WorldState:
         return self._state
 
-    def bind(self, state: WorldState):
+    def bind(self, state: WorldState, borrowed: bool = False):
+        """Hold ``state``: the world writes its fields by replacing them on
+        this very object.  ``borrowed``: its tensors stay the caller's, so an
+        extras buffer written in place (``own_extra``) is copied first."""
         self._state = state
+        self._borrowed = ({k: id(v) for k, v in state.extras.items()}
+                          if borrowed else {})
         return self
+
+    def snapshot(self) -> WorldState:
+        """The state as it stands, as a new object (``WorldState.replace``)
+        that later steps leave as it is: its extras become borrowed."""
+        self._borrowed = {k: id(v) for k, v in self._state.extras.items()}
+        return self._state.replace()
+
+    def own_extra(self, key: str) -> Tensor:
+        """The extras buffer ``key``, to be written in place: a copy, put in
+        the state, where it is still the tensor of a borrowed state (the
+        first write since a ``bind(..., borrowed=True)`` or ``snapshot``).
+        (An id that a freed tensor left behind only costs a copy.)"""
+        value = self._state.extras[key]
+        if self._borrowed.get(key) == id(value):
+            value = value.clone()
+            self._state.extras[key] = value
+            del self._borrowed[key]
+        return value
+
+    def functional(self, state: WorldState, fn: Callable,
+                   generator: Optional[torch.Generator] = None):
+        """``(new state, fn())`` with ``fn`` run on a ``replace()`` of
+        ``state`` bound as borrowed and, where given, ``generator`` as the
+        world's: the caller's state object, dict and tensors are left as
+        they were.  Whatever the world held before (state, generator, the
+        action widths) is restored afterwards, also when ``fn`` raises (the
+        JAX package's ``Environment._functional``)."""
+        held = (self._state, self._borrowed, self.generator,
+                list(self._u_widths))
+        self.bind(state.replace(), borrowed=True)
+        if generator is not None:
+            self.generator = generator
+        try:
+            out = fn()
+            return self._state, out
+        finally:
+            (self._state, self._borrowed, self.generator,
+             self._u_widths) = held
 
     def has_extra(self, key: str) -> bool:
         return key in self._state.extras

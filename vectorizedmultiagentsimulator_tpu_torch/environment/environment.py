@@ -37,6 +37,7 @@ from vectorizedmultiagentsimulator_tpu_torch.utils import (
     env_index_to_mask,
     host_copy,
     resolve_device,
+    same_device,
 )
 
 Tensor = torch.Tensor
@@ -109,9 +110,56 @@ class Environment:
         self.viewer = None
         self.text_lines = None
 
+    # ------------------------------------------------------------------ #
+    # State and the functional API (the JAX package's environment.py:
+    # 112-181)
+    # ------------------------------------------------------------------ #
+    @property
+    def state(self) -> WorldState:
+        """The whole simulation state but the random stream (checkpoint =
+        save this and ``world.generator.get_state()``): a new object over
+        the world's tensors, which later steps leave as it is.  (After a
+        ``parallel.rollout`` on the card those tensors are the graph's
+        buffers, which its next replay writes over: clone to keep them.)"""
+        return self.world.snapshot()
+
+    @state.setter
+    def state(self, value: WorldState):
+        self.world.bind(value.replace(), borrowed=True)
+
     @property
     def steps(self) -> Tensor:
         return self.world.state.steps
+
+    def step_fn(self, state: WorldState, actions,
+                generator: Optional[torch.Generator] = None):
+        """``(new state, (obs, rews, dones, infos))``: one step from
+        ``state`` (``(obs, rews, terminated, truncated, infos)`` with
+        ``terminated_truncated``; dicts with ``dict_spaces``), as ``step``
+        gives it.  ``state`` and the world's own state are left as they
+        were.  Random numbers come from ``generator``, else from the
+        world's generator; the same state and actions with generators in
+        the same state give the same outputs to the bit."""
+        actions = self._normalize_actions(actions)
+        return self.world.functional(
+            state, lambda: tuple(self._step_impl(actions)), generator)
+
+    def reset_fn(self, state: WorldState,
+                 generator: Optional[torch.Generator] = None):
+        """``(new state, (obs, dones, infos))``: every env of ``state``
+        reset, as ``reset`` does it, ``state`` left as it was."""
+        return self.world.functional(
+            state, lambda: tuple(self._reset_impl(None)), generator)
+
+    def reset_at_fn(self, state: WorldState, mask,
+                    generator: Optional[torch.Generator] = None):
+        """``(new state, (obs, dones, infos))``: the envs of ``mask`` (a
+        ``[num_envs]`` bool tensor, or what ``reset_at`` takes) of
+        ``state`` reset, ``state`` left as it was."""
+        self._check_batch_index(mask)
+        mask = env_index_to_mask(mask, self.num_envs, self.device)
+        return self.world.functional(
+            state, lambda: tuple(self._reset_impl(mask)), generator)
 
     # ------------------------------------------------------------------ #
     # Public API (reference environment.py:113-202,325-405)
@@ -156,22 +204,7 @@ class Environment:
         ``actions``: list of len ``n_agents`` of ``[num_envs, action_size]``
         tensors, or a dict keyed by agent name.
         """
-        actions = self._normalize_actions(actions)
-        for i, agent in enumerate(self.agents):
-            self._set_action(actions[i], agent)
-        for agent in self.world.agents:
-            self.scenario.env_process_action(agent)
-        self.scenario.pre_step()
-        self.world.step()
-        self.scenario.post_step()
-        s = self.world.state
-        s.steps = s.steps + 1
-        return self._get_from_scenario(
-            get_observations=True,
-            get_infos=True,
-            get_rewards=True,
-            get_dones=True,
-        )
+        return self._step_impl(self._normalize_actions(actions))
 
     def done(self):
         return self._done_impl()
@@ -181,6 +214,13 @@ class Environment:
             seed = 0
         self.world.generator.manual_seed(seed)
         return [seed]
+
+    def to(self, device):
+        """``self`` on the env's own device.  An env is built on its device
+        and stays there (as the JAX package's ``to``, which moves nothing):
+        another device raises."""
+        same_device(self.device, device)
+        return self
 
     def get_from_scenario(
         self,
@@ -206,6 +246,25 @@ class Environment:
             assert 0 <= batch_index < self.num_envs, (
                 f"Index must be between 0 and {self.num_envs}, got {batch_index}"
             )
+
+    def _step_impl(self, actions: List[Tensor]):
+        """The step on the state the world holds: ``step``'s and
+        ``step_fn``'s body."""
+        for i, agent in enumerate(self.agents):
+            self._set_action(actions[i], agent)
+        for agent in self.world.agents:
+            self.scenario.env_process_action(agent)
+        self.scenario.pre_step()
+        self.world.step()
+        self.scenario.post_step()
+        s = self.world.state
+        s.steps = s.steps + 1
+        return self._get_from_scenario(
+            get_observations=True,
+            get_infos=True,
+            get_rewards=True,
+            get_dones=True,
+        )
 
     def _reset_impl(self, env_index):
         """Reset the world (+ scenario hook) and gather obs/info/done."""
@@ -590,9 +649,8 @@ class Environment:
                    if getattr(x, "rendering", False)]
                   if render_sensors else [])
         frame_state, measurements = self._frame_state(env_index, lidars)
-        live = self.world.state
-        self.world.bind(frame_state)
-        try:
+
+        def draw():
             self._draw_frame(
                 agent_index_focus, plot_position_function,
                 plot_position_function_precision, plot_position_function_range,
@@ -601,8 +659,8 @@ class Environment:
                 plot_position_function_cmap_name)
             for lidar, meas in zip(lidars, measurements):
                 self.viewer.add_onetime_list(lidar.render(0, meas))
-        finally:
-            self.world.bind(live)
+
+        self.world.functional(frame_state, draw)
         return self.viewer.render(return_rgb_array=mode == "rgb_array")
 
     def _frame_state(self, env_index: int, lidars):

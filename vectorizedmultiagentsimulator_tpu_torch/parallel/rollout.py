@@ -49,17 +49,14 @@ comes, or the policy's generator becomes the world's or stops being it.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable, Dict, Optional, Sequence, Union
 
 import torch
 
 from vectorizedmultiagentsimulator_tpu_torch.core.state import WorldState
+from vectorizedmultiagentsimulator_tpu_torch.utils import STATE_FIELDS
 
 Tensor = torch.Tensor
-
-_FIELDS = tuple(f.name for f in dataclasses.fields(WorldState)
-                if f.name != "extras")
 
 
 def rollout(
@@ -218,21 +215,23 @@ def _eager(env, policy, n_steps, generator, record):
 # --------------------------------------------------------------------- #
 # The graph
 # --------------------------------------------------------------------- #
-def _clone_state(state: WorldState) -> WorldState:
-    return WorldState(
-        **{f: getattr(state, f).clone() for f in _FIELDS},
-        extras={k: v.clone() for k, v in state.extras.items()})
-
-
-def _over(static: WorldState) -> WorldState:
-    """A new state object over ``static``'s tensors (the world rebinds the
-    fields of the object it holds)."""
-    return WorldState(**{f: getattr(static, f) for f in _FIELDS},
-                      extras=dict(static.extras))
+def register_generators(graph, generators) -> None:
+    """Register each of ``generators`` with the CUDA graph ``graph``
+    (``CUDAGraph.register_generator_state``), before its capture: each
+    replay then draws on from the generator's state at the replay and
+    advances it as the eager calls would.  A graph of
+    ``Environment.step_fn`` calls registers the generator they are given
+    (or the world's)."""
+    if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        raise RuntimeError(
+            "this PyTorch cannot register a torch.Generator with a CUDA"
+            " graph (CUDAGraph.register_generator_state)")
+    for g in generators:
+        graph.register_generator_state(g)
 
 
 def _tensors(state: WorldState) -> Dict[str, Tensor]:
-    out = {f: getattr(state, f) for f in _FIELDS}
+    out = {f: getattr(state, f) for f in STATE_FIELDS}
     out.update({f"extras.{k}": v for k, v in state.extras.items()})
     return out
 
@@ -250,16 +249,12 @@ class _Graph:
     def __init__(self, env, policy, n_steps, shared, record):
         world = env.world
         dev = env.device
-        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
-            raise RuntimeError(
-                "rollout: this PyTorch cannot register a torch.Generator"
-                " with a CUDA graph (CUDAGraph.register_generator_state)")
         self.policy, self.record = policy, record
         self.world_generator = world.generator
         self.generator = (world.generator if shared
                           else torch.Generator(device=dev))
         gens = [world.generator] + ([] if shared else [self.generator])
-        self.static = _clone_state(world.state)
+        self.static = world.state.clone()
         self.signature = _signature(self.static)
 
         # One eager step on a side stream from a copy of the state: lazy
@@ -268,7 +263,7 @@ class _Graph:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side), torch.no_grad():
-            world.bind(_clone_state(self.static))
+            world.bind(self.static.clone())
             warm = _steps(env, policy, 1, self.generator, record)[0]
         torch.cuda.current_stream(dev).wait_stream(side)
         world.generator.set_state(world_rng)
@@ -277,11 +272,10 @@ class _Graph:
                                     device=dev) for x in leaves]
         del warm, leaves
 
-        world.bind(_over(self.static))
+        world.bind(self.static.replace())
         world.drop_cast_caches()
         self.graph = torch.cuda.CUDAGraph()
-        for g in gens:
-            self.graph.register_generator_state(g)
+        register_generators(self.graph, gens)
 
         def each(t, rec):
             for buf, x in zip(self.outputs, _flatten(rec)[0]):
@@ -294,7 +288,7 @@ class _Graph:
         finally:
             # a capture runs nothing: the world goes back to the static
             # buffers, also if it raised
-            world.bind(_over(self.static))
+            world.bind(self.static.replace())
             world.drop_cast_caches()
 
     def fits(self, env, policy, generator, record) -> bool:
@@ -326,7 +320,7 @@ class _Graph:
         self.graph.replay()
         if own and generator is not None:
             generator.set_state(self.generator.get_state())
-        world.bind(_over(self.static))
+        world.bind(self.static.replace())
         world.drop_cast_caches()
         return self.outputs
 

@@ -158,7 +158,7 @@ def shard_environment(env, mesh: Optional[EnvMesh] = None,
     device = mesh.device if mesh.device is not None else env.device
     local = Environment(type(env.scenario)(), num_envs=B // mesh.size,
                         device=device, seed=seed, **kwargs)
-    state = shard_state(env.world.state, mesh, B, device)
+    state = shard_state(env.state, mesh, B, device)
     like = local.world.state
     if set(state.extras) != set(like.extras):
         raise ValueError(
@@ -171,6 +171,6 @@ def shard_environment(env, mesh: Optional[EnvMesh] = None,
             raise ValueError(
                 f"{name}: the rank's rows are {tuple(got.shape)} {got.dtype},"
                 f" its env holds {tuple(want.shape)} {want.dtype}")
-    local.world.bind(state)
+    local.state = state
     local.world.generator.manual_seed(seed)
     return local

@@ -17,8 +17,10 @@ agent-agent collision there, and a reset starts an env from one of its
 recorded rows with probability ``probability_use_recording``.  Rows are
 ``[pos_x, pos_y, rot, vel_x, vel_y, scenario_id, path_id, point_id]`` per
 agent (the reference's row format).  Both buffers are written in place
-(indexed writes into the same storage), so a captured step neither
-reallocates nor re-reads them on the host, and they hold detached values:
+(indexed writes into the same storage, through ``World.own_extra``, which
+copies a buffer of a borrowed state first: a functional call never writes
+into its caller's), so a captured step neither reallocates nor re-reads
+them on the host, and they hold detached values:
 a replayed state starts an episode, with no gradient back into the episode
 it was recorded in.
 
@@ -443,7 +445,8 @@ class Scenario(BaseScenario):
     def _hist_push(self, snap):
         """Write ``snap`` at each env's ring pointer and advance it."""
         H = self.n_steps_before_recording
-        self.state_hist[self._env_rows, self.hist_ptr.long()] = snap
+        hist = self.world.own_extra("scenario.state_hist")
+        hist[self._env_rows, self.hist_ptr.long()] = snap
         self.hist_ptr = (self.hist_ptr + 1) % H
         self.hist_len = torch.clamp_max(self.hist_len + 1, H)
 
@@ -461,7 +464,7 @@ class Scenario(BaseScenario):
         (road_traffic.py:1023-1035) in the envs of ``env_mask``: the ring
         zeroed with the current state in its first slot."""
         snap = self._current_snapshot()
-        hist = self.state_hist
+        hist = self.world.own_extra("scenario.state_hist")
         hist.masked_fill_(env_mask[:, None, None, None], 0.0)
         hist[:, 0] = torch.where(env_mask[:, None, None], snap, hist[:, 0])
         one = torch.ones_like(self.hist_ptr)
@@ -474,8 +477,8 @@ class Scenario(BaseScenario):
         value elsewhere."""
         S = self.initial_state_buffer_size
         rows, ptr = self._env_rows, self.isb_ptr.long()
-        self.isb_buf[rows, ptr] = torch.where(mask[:, None, None], snap,
-                                              self.isb_buf[rows, ptr])
+        buf = self.world.own_extra("scenario.isb_buf")
+        buf[rows, ptr] = torch.where(mask[:, None, None], snap, buf[rows, ptr])
         self.isb_ptr = torch.where(mask, (self.isb_ptr + 1) % S, self.isb_ptr)
         self.isb_len = torch.where(
             mask, torch.clamp_max(self.isb_len + 1, S), self.isb_len)

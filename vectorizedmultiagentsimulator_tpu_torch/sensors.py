@@ -22,7 +22,7 @@ from typing import Callable, Tuple, Union
 import numpy as np
 import torch
 
-from vectorizedmultiagentsimulator_tpu_torch.utils import Color
+from vectorizedmultiagentsimulator_tpu_torch.utils import Color, same_device
 
 
 class Sensor(ABC):
@@ -45,6 +45,12 @@ class Sensor(ABC):
     @abstractmethod
     def render(self, env_index: int = 0) -> list:
         raise NotImplementedError
+
+    def to(self, device):
+        """``self`` on its world's device; another device raises
+        (``Environment.to``)."""
+        same_device(self._world.device, device)
+        return self
 
 
 class Lidar(Sensor):

@@ -62,6 +62,27 @@ class Color(Enum):
     YELLOW = (0.87, 0.87, 0)
 
 
+def override(cls):
+    """Decorator marking a method as an override of one of ``cls``'s
+    (reference utils.py:64): raises ``NameError`` where ``cls`` has no
+    method of that name."""
+
+    def check_override(method):
+        if method.__name__ not in dir(cls):
+            raise NameError(f"{method} does not override any method of {cls}")
+        return method
+
+    return check_override
+
+
+class Observer:
+    """Subscriber of an :class:`Observable` (reference utils.py:95-103):
+    implements ``notify``."""
+
+    def notify(self, observable, *args, **kwargs):
+        raise NotImplementedError
+
+
 class Observable:
     """Tiny observer registry: joints subscribe to their entities' pose
     writes (reference utils.py:85-103)."""
@@ -75,6 +96,9 @@ class Observable:
     def notify_observers(self, *args, **kwargs):
         for obs in self._observers:
             obs.notify(self, *args, **kwargs)
+
+    def unsubscribe(self, observer):
+        self._observers.remove(observer)
 
 
 class TorchUtils:
@@ -142,6 +166,47 @@ class TorchUtils:
         return map_tensors(data, lambda _: next(host).numpy())
 
     @staticmethod
+    def recursive_clone(value):
+        """``value`` (a tensor, or nested dicts, lists and tuples of them)
+        with every tensor cloned, the structure kept (reference
+        utils.py:215-220)."""
+        if isinstance(value, Tensor):
+            return value.clone()
+        if isinstance(value, dict):
+            return {k: TorchUtils.recursive_clone(v) for k, v in value.items()}
+        if isinstance(value, (list, tuple)):
+            return type(value)(TorchUtils.recursive_clone(v) for v in value)
+        return value
+
+    @staticmethod
+    def recursive_require_grad_(value):
+        """Turn on ``requires_grad`` of every floating-point tensor in
+        ``value`` (nested dicts, lists and tuples), in place (reference
+        utils.py:222-231); returns ``value``."""
+        if isinstance(value, Tensor):
+            if value.is_floating_point():
+                value.requires_grad_(True)
+        elif isinstance(value, dict):
+            for v in value.values():
+                TorchUtils.recursive_require_grad_(v)
+        elif isinstance(value, (list, tuple)):
+            for v in value:
+                TorchUtils.recursive_require_grad_(v)
+        return value
+
+    @staticmethod
+    def select_by_index(stacked: Tensor, idx: Tensor) -> Tensor:
+        """``stacked[b, idx[b]]`` for ``stacked [B, K, ...]`` and ``idx
+        [B]``; an index outside ``[0, K)`` selects 0, as the JAX package's
+        ``JaxUtils.select_by_index`` does."""
+        idx = idx.long()
+        idx = torch.where((idx > 0) & (idx < stacked.shape[1]), idx,
+                          torch.zeros_like(idx))
+        index = idx.reshape((-1, 1) + (1,) * (stacked.ndim - 2))
+        index = index.expand((stacked.shape[0], 1) + stacked.shape[2:])
+        return torch.gather(stacked, 1, index).squeeze(1)
+
+    @staticmethod
     def where_from_index(env_index, new_value, old_value: Tensor) -> Tensor:
         """Masked overwrite of the envs named by ``env_index`` (None: all)."""
         mask = env_index_to_mask(
@@ -162,6 +227,25 @@ def resolve_device(device) -> torch.device:
             ' unless asked otherwise: pass device="cpu" to run on the CPU.'
         )
     return torch.device("cuda")
+
+
+def same_device(own: torch.device, device) -> None:
+    """Raise ``ValueError`` unless ``device`` is ``own`` (``to(device)`` of
+    an env or a sensor)."""
+    device = torch.device(device)
+
+    def index(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+
+    if device.type == own.type and index(device) == index(own):
+        return
+    raise ValueError(
+        f"this env lives on {own} and cannot move to {device}: build it"
+        f" there (make_env(..., device={str(device)!r})), or carry its"
+        " state across with utils/checkpoint.py (save_env, then"
+        " restore_env into the other env)")
 
 
 def env_index_to_mask(env_index, batch_dim: int, device=None) -> Tensor:

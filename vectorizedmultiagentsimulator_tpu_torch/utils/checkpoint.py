@@ -68,7 +68,7 @@ def _read(path: str) -> Dict[str, np.ndarray]:
 def load(path: str, like_state: WorldState
          ) -> Tuple[WorldState, Optional[torch.Tensor]]:
     """``(state, generator_state)`` from a checkpoint; ``like_state`` (e.g.
-    ``env.world.state``) gives the structure, devices and dtypes, and every
+    ``env.state``) gives the structure, devices and dtypes, and every
     field and extras key of the file must be its (shapes too).
     ``generator_state`` is ``None`` for a JAX package file."""
     saved = _read(path)
@@ -91,15 +91,15 @@ def load(path: str, like_state: WorldState
 
 def save_env(path: str, env) -> None:
     """Checkpoint a live Environment: its state and world generator."""
-    save(path, env.world.state, env.world.generator.get_state())
+    save(path, env.state, env.world.generator.get_state())
 
 
 def restore_env(path: str, env):
     """Restore a live Environment from a checkpoint of an env with the same
     scenario and kwargs (or a JAX package checkpoint, which leaves the
     world generator as it is)."""
-    state, generator_state = load(path, env.world.state)
-    env.world.bind(state)
+    state, generator_state = load(path, env.state)
+    env.state = state
     if generator_state is not None:
         env.world.generator.set_state(generator_state)
     return env
