@@ -71,3 +71,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU and nvcc; skips elsewhere"
     )
+    config.addinivalue_line(
+        "markers",
+        "slow: a JAX-package-only case left out of tier-1 (-m 'not slow'); "
+        "run on demand with -m slow",
+    )

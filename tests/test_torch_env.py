@@ -181,7 +181,7 @@ def test_port_never_imports_jax():
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-        text=True, timeout=120,
+        text=True, timeout=60,
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout

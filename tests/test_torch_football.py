@@ -93,7 +93,7 @@ def host_planner(tmp_path_factory):
     subprocess.run(
         [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
          "-x", "c++", "-o", lib_path, fpc.SOURCE],
-        check=True,
+        check=True, timeout=60,
     )
     fn = ctypes.CDLL(lib_path).vmt_football_best_positions
     fn.argtypes = [ctypes.c_void_p] * 3

@@ -279,7 +279,7 @@ def _build_host_physics(directory, replace=None):
     subprocess.run(
         [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
          "-o", lib_path, src_path],
-        check=True,
+        check=True, timeout=60,
     )
     lib = ctypes.CDLL(lib_path)
     fn = lib.vmt_physics_step

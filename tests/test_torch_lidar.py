@@ -260,7 +260,7 @@ def host_cast(tmp_path_factory):
     subprocess.run(
         [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
          "-x", "c++", "-o", lib_path, raycast_cuda.SOURCE],
-        check=True,
+        check=True, timeout=60,
     )
     fn = ctypes.CDLL(lib_path).vmt_cast_rays
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

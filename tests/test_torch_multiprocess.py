@@ -13,7 +13,7 @@ imports the port only), the port's counterpart of
   Pallas kernel in interpret mode);
 * in one process: the trainer under a mesh builds only its rank's envs.
 
-Each world runs under ``parallel.run_workers`` with a 180 s limit: a hung
+Each world runs under ``parallel.run_workers`` with a 60 s limit: a hung
 or failed rank fails the test instead of stalling the run.
 """
 import os
@@ -51,7 +51,7 @@ import torch_dp_worker as worker  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(os.path.dirname(__file__), "torch_dp_worker.py")
-TIMEOUT_S = 180
+TIMEOUT_S = 60
 # The shards' sums in another order than the one-process sum: fp32
 # rounding of ~500 terms, far below a factor from a wrong norm_n.
 GRAD_RTOL = 1e-4

@@ -225,7 +225,7 @@ def test_kernel_structs_match_ctypes_mirrors(module, structs, tmp_path):
     lines.append("return 0; }")
     (tmp_path / "layout.cpp").write_text("\n".join(lines))
     subprocess.run([cxx, "-o", str(tmp_path / "layout"),
-                    str(tmp_path / "layout.cpp")], check=True)
+                    str(tmp_path / "layout.cpp")], check=True, timeout=60)
     out = subprocess.run([str(tmp_path / "layout")], capture_output=True,
-                         text=True, check=True).stdout.split()
+                         text=True, check=True, timeout=60).stdout.split()
     assert [int(x) for x in out] == expected

@@ -621,7 +621,7 @@ def test_kernel_source_on_the_host_matches_plain(name, tmp_path):
             subprocess.run(
                 [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-x", "c++",
                  *[f"-D{d}" for d in defines], "-o", lib_path, puc.SOURCE],
-                check=True,
+                check=True, timeout=60,
             )
         lib = ctypes.CDLL(lib_path)
         assert lib.vmt_ppo_p() == puc.flat_size(spec)

@@ -287,7 +287,7 @@ def host_kernels(tmp_path_factory):
     subprocess.run(
         [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
          "-x", "c++", "-o", lib_path, rgc.SOURCE],
-        check=True,
+        check=True, timeout=60,
     )
     lib = ctypes.CDLL(lib_path)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -575,9 +575,9 @@ def test_kernel_struct_matches_ctypes_mirror(tmp_path):
         + '  std::printf("%zu\\n", sizeof(RoadParams));\n}\n')
     exe = tmp_path / "probe"
     subprocess.run([cxx, "-std=c++17", "-o", str(exe), str(probe)],
-                   check=True)
+                   check=True, timeout=60)
     got = [int(x) for x in subprocess.run(
-        [str(exe)], capture_output=True, text=True, check=True
+        [str(exe)], capture_output=True, text=True, check=True, timeout=60
     ).stdout.split()]
     want = [getattr(rgc._RoadParams, f).offset for f in fields]
     assert got == want + [ctypes.sizeof(rgc._RoadParams)]

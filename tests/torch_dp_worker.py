@@ -102,7 +102,7 @@ def main():
     mode, rank, world, port, out = sys.argv[1:6]
     mesh = init_distributed("gloo", int(rank), int(world),
                             init_method=f"tcp://localhost:{port}",
-                            device="cpu", timeout_s=120)
+                            device="cpu", timeout_s=60)
     {"step_train": step_train, "grad": grad}[mode](mesh, out)
     torch.distributed.destroy_process_group()
     bad = sorted(m for m in sys.modules if m.split(".")[0] in (
