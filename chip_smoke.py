@@ -50,8 +50,10 @@ Phases, one line each:
      at transport@4096's shapes in Gaussian, flat-categorical and
      multidiscrete mode, with a 1-wide action, with norm_n != mb, with a
      ragged last tile, with hidden sizes of 96, 100 (padded to 112), 128,
-     256 and 300 (smaller tiles; at 256 the gradient sums in device memory,
-     at 300 the trunk weights read from there too), at 1536 and 2048 (the
+     176, 256 and 300 (smaller tiles; at 176 and 256 a cluster of 4 blocks
+     a tile, each with a quarter of the hidden units and the sums on chip,
+     at 300 the gradient sums in device memory and the trunk weights read
+     from there too), at 1536 and 2048 (the
      activation tiles in device memory too; one minibatch of a real
      transport@256 rollout with the trainer's own parameters, and each
      one's time, bound and plain time), at
@@ -490,6 +492,8 @@ PPO_BUILDS = {
     "transport hidden 100": (15, 2, 0, 100),
     "transport hidden 128": (15, 2, 0, 128),
     "transport multidiscrete hidden 128": (15, 2, 3, 128),
+    "transport hidden 176": (15, 2, 0, 176),
+    "transport multidiscrete hidden 192": (15, 2, 3, 192),
     "transport hidden 256": (15, 2, 0, 256),
     "transport hidden 300": (15, 2, 0, 300),
     "transport hidden 1536": (15, 2, 0, 1536),
@@ -497,10 +501,13 @@ PPO_BUILDS = {
 }
 # The shapes phase 2 holds beside the default one: wider trunks take
 # smaller tiles (64, 32, 16 samples), a hidden size that is not a multiple
-# of 16 is padded, from about hidden 160 the gradient sums live in device
-# memory, and from about 260 the trunk weights are read from there too.
+# of 16 is padded, from about hidden 160 to 256 a cluster of 4 blocks
+# shares each tile (176: 48 units a block, 192 multidiscrete, 256: 64 a
+# block), and from about 260 the gradient sums live in device memory and
+# the trunk weights are read from there too.
 PPO_WIDE = ("transport hidden 96", "transport hidden 100",
             "transport hidden 128", "transport multidiscrete hidden 128",
+            "transport hidden 176", "transport multidiscrete hidden 192",
             "transport hidden 256", "transport hidden 300")
 # (scenario, envs, rollout steps, iterations, ray casts a step, hidden) of
 # the training runs of phase 3; a step observes once and once more in its
@@ -1705,13 +1712,14 @@ def profile_training(name, num_envs):
 def ppo_layout(spec):
     from vectorizedmultiagentsimulator_tpu_torch.ops import ppo_update_cuda
 
-    tile, global_sums, global_weights, global_tiles = ppo_update_cuda.layout(
-        spec)
+    tile, global_sums, global_weights, global_tiles, cluster = (
+        ppo_update_cuda.layout(spec))
     where = lambda g: "device" if g else "shared"  # noqa: E731
     return (f"tile {tile}, sums in {where(global_sums)} memory, trunk"
             f" weights in {where(global_weights)} memory, activation tiles"
             f" in {where(global_tiles)} memory,"
-            f" {ppo_update_cuda.blocks_per_sm(spec)} block(s) an SM")
+            f" {ppo_update_cuda.blocks_per_sm(spec)} block(s) an SM,"
+            f" {cluster} block(s) a tile")
 
 
 def ppo_real_case(name, num_envs, steps, hidden):
@@ -4093,8 +4101,8 @@ def main():
             "bound_ms": ppo_t["bound_ms"],
             "bound_by": ppo_t["bound_by"],
             "device_ms": ppo_t["device_ms"],
-            # The same minibatch at hidden 256 (gradient sums in device
-            # memory).
+            # The same minibatch at hidden 256 (a cluster of 4 blocks a
+            # tile).
             "hidden_256": ppo_wide,
             # Past hidden 1,040 (activation tiles in device memory): one
             # minibatch of a real transport@256 rollout.

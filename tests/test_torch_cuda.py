@@ -600,9 +600,9 @@ PPO_GRAD_TOL, PPO_SUM_RTOL, PPO_SUM_ATOL_PER_SAMPLE = 2e-3, 1e-4, 1e-6
     ("ragged_tile_norm_n",
      dict(obs_d=6, act_w=1, hidden=16, lb=8, mb=1000, norm_n=4000), 300),
     # Wider trunks run with tiles of 64, 32 and 16 samples, from about
-    # hidden 160 with the gradient sums in device memory and from about 260
-    # with the weights read from there too; widths that are not a multiple
-    # of 16 are padded.
+    # hidden 160 to 256 over a cluster of 4 blocks, from about 260 with the
+    # gradient sums in device memory and the weights read from there too;
+    # widths that are not a multiple of 16 are padded.
     ("hidden96", dict(obs_d=15, act_w=2, hidden=96, lb=256, mb=8192), 64),
     ("hidden128", dict(obs_d=15, act_w=2, hidden=128, lb=256, mb=8192), 64),
     ("hidden128_multidiscrete",
@@ -640,6 +640,40 @@ def test_ppo_kernel_matches_plain(cuda, name, fields, nb_tot):
     with pytest.raises(TypeError, match="int32"):
         ppo_update_cuda.minibatch_update(spec, inputs[0], inputs[1].long(),
                                          *inputs[2:])
+
+
+def test_ppo_cluster_layout_at_the_training_cells_shapes(cuda):
+    """transport.train's update (obs_d 15, two actions, hidden 256, blocks
+    of 4096 samples) at a 65,536-sample minibatch: the cluster layout, one
+    launch counted under it a call, the same bits from two launches, the
+    plain version's gradients within PPO_GRAD_TOL."""
+    spec = ppo_update_cuda.PPOUpdateSpec(
+        obs_d=15, act_w=2, hidden=256, lb=4096, mb=65536, clip_eps=0.2,
+        vf_coef=0.5, ent_coef=0.01)
+    layout = ppo_update_cuda.layout(spec)
+    assert layout == (64, False, False, False, ppo_update_cuda.CLUSTER)
+    packed, perm, stats, params = random_ppo_inputs(spec, 32, seed=23)
+    inputs = (torch.as_tensor(packed, device="cuda"),
+              torch.as_tensor(perm, device="cuda"),
+              torch.as_tensor(stats, device="cuda"),
+              tuple(torch.as_tensor(p, device="cuda") for p in params))
+    counts = dict(ppo_update_cuda.LAUNCHES_BY_LAYOUT)
+    got_g, got_s = ppo_update_cuda.minibatch_update(spec, *inputs)
+    assert ppo_update_cuda.LAUNCHES_BY_LAYOUT.get(layout, 0) == (
+        counts.get(layout, 0) + 1)
+    rep_g, rep_s = ppo_update_cuda.minibatch_update(spec, *inputs)
+    assert ppo_update_cuda.LAUNCHES_BY_LAYOUT == {
+        **counts, layout: counts.get(layout, 0) + 2}
+    ref_g, ref_s = ppo_update_cuda.minibatch_update_plain(spec, *inputs)
+    torch.cuda.synchronize()
+    for a, b in zip(got_g + got_s, rep_g + rep_s):
+        assert torch.equal(a, b)  # no float atomics: the same bits
+    for i, (g, r) in enumerate(zip(got_g, ref_g)):
+        assert float((g - r).abs().max()) <= PPO_GRAD_TOL * float(
+            r.abs().max()) + 1e-12, f"grad {i}"
+    for g, r in zip(got_s, ref_s):
+        assert abs(float(g) - float(r)) <= (
+            PPO_SUM_RTOL * abs(float(r)) + PPO_SUM_ATOL_PER_SAMPLE * spec.mb)
 
 
 @pytest.mark.parametrize("scenario,kwargs,casts", [

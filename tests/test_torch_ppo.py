@@ -139,23 +139,38 @@ def test_wrapper_raises_on_mixed_devices_and_counts_nothing_on_cpu():
     before = puc.LAUNCHES
     _plain(spec, inputs)
     assert puc.LAUNCHES == before
-    # Tiles shrink as the trunk widens; past about hidden 160 the gradient
-    # sums leave shared memory, past about 256 the bf16 weights too, past
+    # Tiles shrink as the trunk widens; from about hidden 150 to 256 a
+    # cluster of 4 blocks shares each tile and keeps the sums on chip; past
+    # 256 the gradient sums and bf16 weights leave shared memory, past
     # about 1,040 the activation tiles and hidden-size vectors too.
-    assert puc.layout(spec) == (64, False, False, False)
-    assert puc.layout(spec._replace(hidden=64)) == (64, False, False, False)
-    assert puc.layout(spec._replace(hidden=100)) == (64, False, False, False)
-    assert puc.layout(spec._replace(hidden=128)) == (32, False, False, False)
-    assert puc.layout(spec._replace(hidden=256)) == (16, True, False, False)
-    assert puc.layout(spec._replace(hidden=300)) == (32, True, True, False)
-    assert puc.layout(spec._replace(hidden=320)) == (32, True, True, False)
-    assert puc.layout(spec._replace(hidden=1040)) == (16, True, True, False)
+    assert puc.layout(spec) == (64, False, False, False, 1)
+    assert puc.layout(spec._replace(hidden=64)) == (64, False, False, False, 1)
+    assert puc.layout(spec._replace(hidden=100)) == (64, False, False, False,
+                                                     1)
+    assert puc.layout(spec._replace(hidden=128)) == (32, False, False, False,
+                                                     1)
+    assert puc.layout(spec._replace(hidden=256)) == (64, False, False, False,
+                                                     4)
+    assert puc.layout(spec._replace(hidden=300)) == (32, True, True, False, 1)
+    assert puc.layout(spec._replace(hidden=320)) == (32, True, True, False, 1)
+    assert puc.layout(spec._replace(hidden=1040)) == (16, True, True, False,
+                                                      1)
+    # The cluster takes exactly the widths whose sums left shared memory
+    # before: at obs_d 15 from hidden 162 (146-160: tiles of 16) to 256.
+    transport = spec._replace(obs_d=15)
+    assert puc.layout(transport._replace(hidden=160))[4] == 1
+    assert puc.layout(transport._replace(hidden=162))[4] == 4
+    assert puc.layout(transport._replace(hidden=256)) == (64, False, False,
+                                                          False, 4)
+    assert puc.layout(transport._replace(hidden=258))[4] == 1
+    assert "PPO_CL=4" in puc.defines(transport._replace(hidden=256))
+    assert "PPO_CL=1" in puc.defines(transport._replace(hidden=64))
     for hidden in (100, 256, 512, 1024, 1100, 1536, 2048, 4096):
         assert puc.update_supported(spec._replace(hidden=hidden))
     wide = spec._replace(obs_d=15, hidden=1536)
     for hidden in (1536, 2048, 4096):
         assert puc.layout(wide._replace(hidden=hidden)) == (64, True, True,
-                                                             True)
+                                                             True, 1)
         assert "PPO_XG=1" in puc.defines(wide._replace(hidden=hidden))
     # Only packed rows too many for two raw tiles of 16 samples are refused.
     assert not puc.update_supported(spec._replace(obs_d=2000))
@@ -551,8 +566,8 @@ HOST_CASES = {
     "hidden100": (
         dict(obs_d=22, act_w=2, hidden=100, lb=40, mb=200), 7),
     # Wider trunks are compiled with smaller tiles: 32 samples at hidden
-    # 128, 16 at 160; at 256 the gradient sums live in the block's row of
-    # the partial buffer.
+    # 128, 16 at 160; from about 162 to 256 a cluster of 4 blocks shares
+    # each tile (emulated block by block, with its DSMEM exchanges).
     "hidden128_tile32": (
         dict(obs_d=15, act_w=2, hidden=128, lb=40, mb=200), 7),
     # (Its tile is 32 samples, as layout() gives this width.)
@@ -560,8 +575,13 @@ HOST_CASES = {
         dict(obs_d=15, act_w=2, hidden=128, lb=8, mb=72, n_logits=3), 12),
     "hidden160_tile16": (
         dict(obs_d=15, act_w=2, hidden=160, lb=40, mb=120), 4),
-    "hidden256_global_sums": (
-        dict(obs_d=15, act_w=2, hidden=256, lb=40, mb=120), 4),
+    "hidden256_cluster": (
+        dict(obs_d=15, act_w=2, hidden=256, lb=40, mb=200), 7),
+    # 200 samples leave a ragged last tile; 48 units a block.
+    "hidden192_cluster_multidiscrete_ragged": (
+        dict(obs_d=15, act_w=2, hidden=192, lb=8, mb=200, n_logits=3), 30),
+    "hidden256_cluster_norm_n": (
+        dict(obs_d=15, act_w=2, hidden=256, lb=40, mb=120, norm_n=480), 4),
     # Past about hidden 256 the weights are read from device memory.
     "hidden300_global_weights": (
         dict(obs_d=15, act_w=2, hidden=300, lb=40, mb=120), 4),

@@ -31,10 +31,10 @@
 //   (or 16 x 16) output tiles.  mma.sync and not wgmma: the tile's
 //   activations are computed in the kernel in fp32 and rounded to bf16 as
 //   they are read into registers, every operand is read both ways (samples
-//   as M in the forward, as K in the dW products), and at hidden 256 the
-//   weights and three fp32 activation tiles leave room for 16 samples a
-//   tile, below wgmma's 64-row M; mma.sync takes a 16-row tile, any hidden
-//   size padded to 16, and fragments that each thread builds from shared
+//   as M in the forward, as K in the dW products), and in the one-block
+//   layouts the weights and three fp32 activation tiles leave room for 16
+//   to 64 samples a tile; mma.sync takes a 16-row tile, any hidden size
+//   padded to 16, and fragments that each thread builds from shared
 //   memory in a layout the host build shares.
 // - The trunk weights sit in shared memory as bf16, once a block, read by
 //   ldmatrix (transposed for the forward products, as stored for dh1); rows
@@ -45,10 +45,23 @@
 // - Activations are fp32, sample-major ([sample][feature]), in shared
 //   memory.  Per-sample fields of the head are feature-major.
 // - Gradient sums stay in shared memory when they fit beside the tile
-//   (PPO_GG=0); a wider trunk (from about hidden 150) keeps them in the
-//   block's own row of the [grid, P] partial buffer in device memory
-//   (PPO_GG=1), read, added and written by the one thread that owns each
-//   entry.
+//   (PPO_GG=0, up to about hidden 150).
+// - From there to hidden 256 (PPO_CL=4) a cluster of 4 blocks shares each
+//   tile, block r owning hidden units [r HS, (r+1) HS): its columns of W1,
+//   Wv and W2, its rows of W2 (for dh1) and its slices of every activation
+//   and gradient sum.  Every block computes its slice of h1 and hands it,
+//   as the bf16 the next product rounds it to, to the other blocks' shared
+//   memory (DSMEM); likewise dz2.  The mean and value are sums over the
+//   slices, exchanged and added in rank order, and every block runs the
+//   loss head on the same numbers; rank 0 keeps the head's own sums.  A
+//   block's dW2 columns and its threads' running sums of dWm, dWv2 and the
+//   trunk's biases stay in registers for the whole launch, dW1 and dWv in
+//   its shared memory; each block writes its share of the cluster's row
+//   of the partial buffer once, at the end.  Three cluster barriers a
+//   tile, two split into arrive and wait around local work.
+// - Past hidden 256 the block's gradient sums live in its own row of the
+//   [grid, P] partial buffer in device memory (PPO_GG=1, with PPO_WG=1),
+//   read, added and written by the one thread that owns each entry.
 // - A trunk whose three fp32 activation tiles overflow a block even at 16
 //   samples (past about hidden 1,040 at obs_d 15) keeps them, and the
 //   hidden-size vectors (Wm, Wv2 and the trunk's biases), in the block's
@@ -61,27 +74,31 @@
 //   computes; the minibatch's shuffle is folded into the address (sample q
 //   is column perm[q / lb] * lb + q % lb).
 // - Two blocks an SM where the shared memory allows (the wrapper sizes the
-//   grid).
+//   grid); a cluster's blocks take one SM each, and the grid is as many
+//   clusters as the card holds at once.
 // The head's shape is static and small, so the file is compiled once per
-// (OD, AW, H, NL, T, GG, WG, XG) with -D flags; n, mb, lb and the loss
+// (OD, AW, H, NL, T, GG, WG, XG, CL) with -D flags; n, mb, lb and the loss
 // coefficients are runtime fields of PPODims.
 //
 // The body is written as phases over the block's threads with a barrier
 // after each, and nothing in a phase depends on another thread of the same
 // phase; compiled as host C++ (no __CUDACC__) the same phases run as loops
-// over the thread index, with each tensor-core product as a scalar loop
-// that rounds its operands to bf16 and sums in fp32, which is how the CPU
-// tests run this source.
+// over the thread index (and, in the cluster layout, over the cluster's
+// blocks, whose shared memory the DSMEM stores then write), with each
+// tensor-core product as a scalar loop that rounds its operands to bf16 and
+// sums in fp32, which is how the CPU tests run this source.
 #include <cstdint>
 #include <cstring>
 
 #ifdef __CUDACC__
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #define DEV __device__ __forceinline__
 #define PHASE_BEGIN { const int tid = threadIdx.x;
 #define PHASE_END } __syncthreads();
 #else
+#include <algorithm>
 #include <cmath>
 #include <vector>
 #define DEV inline
@@ -91,8 +108,8 @@
 
 #if !defined(PPO_OD) || !defined(PPO_AW) || !defined(PPO_H) || \
     !defined(PPO_NL) || !defined(PPO_T) || !defined(PPO_GG) || \
-    !defined(PPO_WG) || !defined(PPO_XG)
-#error "compile with -DPPO_OD= -DPPO_AW= -DPPO_H= -DPPO_NL= -DPPO_T= -DPPO_GG= -DPPO_WG= -DPPO_XG= (see ops/ppo_update_cuda.py)"
+    !defined(PPO_WG) || !defined(PPO_XG) || !defined(PPO_CL)
+#error "compile with -DPPO_OD= -DPPO_AW= -DPPO_H= -DPPO_NL= -DPPO_T= -DPPO_GG= -DPPO_WG= -DPPO_XG= -DPPO_CL= (see ops/ppo_update_cuda.py)"
 #endif
 
 // Sizes and coefficients that are fixed for a trainer, filled once by the
@@ -129,7 +146,10 @@ constexpr bool WG = PPO_WG != 0;  // trunk weights read from device memory
 // activation tiles and hidden-size vectors in device memory
 constexpr bool XG = PPO_XG != 0;
 static_assert(!XG || (GG && WG), "PPO_XG=1 needs PPO_GG=1 and PPO_WG=1");
-constexpr int NT = 256;         // threads per block
+constexpr int CL = PPO_CL;      // blocks of a cluster that share a tile
+static_assert(CL == 1 || (CL == 4 && !GG && !WG && !XG),
+              "PPO_CL=4 keeps the sums and weights on chip");
+constexpr int NT = CL > 1 ? 512 : 256;  // threads per block
 constexpr int NWARPS = NT / 32;
 static_assert(T == 64 || T == 32 || T == 16, "T is 64, 32 or 16");
 
@@ -188,6 +208,7 @@ constexpr int NX = XV + T * XS;
 // A block's slice of the scratch (floats, a multiple of 4); 0 unless XG.
 constexpr int SCRATCH = XG ? NV + NX : 0;
 
+#if PPO_CL == 1
 // Shared memory.  First the trunk weights as bf16 bits [rows][WS]: W1 and
 // Wv (ODP rows), W2 (HP rows); then fp32 regions, in floats, each on 16
 // bytes.
@@ -204,6 +225,61 @@ constexpr int S_RAW = S_G + (GG ? 0 : P4);  // two raw tiles [RAW_ROWS][RS]
 constexpr int RAW = RAW_ROWS * RS;
 constexpr int S_X = S_RAW + 2 * RAW;      // X unless XG
 constexpr int S_MEAN = S_X + (XG ? 0 : NX);  // [HW][TS] mean or logits, then their gradient
+#else
+// The cluster layout (PPO_CL=4).  Block r owns hidden units [r HS, r HS +
+// HS); the full hidden is padded to HC = CL HS (units past H are 0).
+constexpr int HS = up16((H + CL - 1) / CL);
+constexpr int HC = CL * HS;
+static_assert(HS <= 64, "the cluster layout holds at most 64 units a block");
+constexpr int WSS = HS + 8;  // bf16 row stride of a slice ([*][HS])
+constexpr int HCS = HC + 8;  // bf16 row stride of a full row ([*][HC])
+constexpr int XSS = HS + 8;  // fp32 slice tiles [T][XSS]
+// bf16 regions, in elements: the block's columns of W1, Wv ([ODP][WSS]) and
+// W2 ([HC][WSS]), its rows of W2 ([HS][HCS], W2[r HS + j][i]), then h1 and
+// dz2 of the whole cluster ([T][HCS]; each block writes its columns into
+// every block's copy).
+constexpr int CB_W1 = 0;
+constexpr int CB_WV = CB_W1 + ODP * WSS;
+constexpr int CB_W2C = CB_WV + ODP * WSS;
+constexpr int CB_W2R = CB_W2C + HC * WSS;
+constexpr int CB_H1 = CB_W2R + HS * HCS;
+constexpr int CB_DZ2 = CB_H1 + T * HCS;
+constexpr int CB_END = CB_DZ2 + T * HCS;  // a multiple of 8
+// fp32 regions, in floats: the block's slices of Wm ([HW][HS]), Wv2, b1,
+// b2, bv; the head's bm, log_std, bv2; the block's gradient sums but dW2
+// (offsets L_*); two raw tiles; h1 (then dz1), h2 (then dz2) and hv (then
+// dzv) over the block's units; the rank-ordered partial sums of mean and
+// value ([CL][HW + 1][T], written by every block of the cluster); the
+// head's rows as in the one-block layout.
+constexpr int C_WM = CB_END / 2;
+constexpr int C_WV2 = C_WM + up4(HS * HW);
+constexpr int C_B1 = C_WV2 + HS;
+constexpr int C_B2 = C_B1 + HS;
+constexpr int C_BV = C_B2 + HS;
+constexpr int S_BM = C_BV + HS;
+constexpr int S_LS = S_BM + up4(HW);
+constexpr int S_BV2 = S_LS + up4(HW);
+constexpr int L_W1 = 0;                   // [OD][HS]
+constexpr int L_WV = L_W1 + OD * HS;      // [OD][HS]
+constexpr int L_B1 = L_WV + OD * HS;
+constexpr int L_B2 = L_B1 + HS;
+constexpr int L_BV = L_B2 + HS;
+constexpr int L_WM = L_BV + HS;           // [HS][HW]
+constexpr int L_WV2 = L_WM + HS * HW;
+constexpr int L_BM = L_WV2 + HS;          // rank 0: the head's own sums
+constexpr int L_LS = L_BM + HW;
+constexpr int L_BV2 = L_LS + HW;
+constexpr int L_SUMS = L_BV2 + 1;
+constexpr int LG = L_SUMS + 3;
+constexpr int C_G = S_BV2 + 4;
+constexpr int S_RAW = C_G + up4(LG);
+constexpr int RAW = RAW_ROWS * RS;
+constexpr int C_X1 = S_RAW + 2 * RAW;
+constexpr int C_X2 = C_X1 + T * XSS;
+constexpr int C_XV = C_X2 + T * XSS;
+constexpr int C_HP = C_XV + T * XSS;
+constexpr int S_MEAN = C_HP + CL * (HW + 1) * T;
+#endif
 constexpr int S_VAL = S_MEAN + HW * TS;   // value, then its gradient
 constexpr int S_PG = S_VAL + TS;
 constexpr int S_VF = S_PG + TS;
@@ -268,6 +344,18 @@ struct BWT { const uint16_t* w; };
 struct BWG { const float* w; int rows, cols; };
 struct BWGT { const float* w; int rows, cols; };
 
+// bf16 operands of the cluster layout in shared memory (h1 and dz2 as the
+// products round them, the weight slices), row stride ld (a multiple of 8),
+// read by ldmatrix:
+//   AH{X, ld}:   A(m, k) = X[m * ld + k]
+//   AHT{X, ld}:  A(m, k) = X[k * ld + m]
+//   BH{Y, ld}:   B(k, n) = Y[k * ld + n]
+//   BHT{Y, ld}:  B(k, n) = Y[n * ld + k]
+struct AH { const uint16_t* x; int ld; };
+struct AHT { const uint16_t* x; int ld; };
+struct BH { const uint16_t* x; int ld; };
+struct BHT { const uint16_t* x; int ld; };
+
 DEV float at(const ARows& a, int m, int k) { return a.x[m * a.ld + k]; }
 DEV float at(const ACols& a, int m, int k) { return a.x[k * a.ld + m]; }
 DEV float at(const BCols& b, int k, int n) { return b.y[k * b.ld + n]; }
@@ -279,6 +367,10 @@ DEV float at(const BWG& b, int k, int n) {
 DEV float at(const BWGT& b, int k, int n) {
     return n < b.rows && k < b.cols ? b.w[n * b.cols + k] : 0.f;
 }
+DEV float at(const AH& a, int m, int k) { return bf16_value(a.x[m * a.ld + k]); }
+DEV float at(const AHT& a, int m, int k) { return bf16_value(a.x[k * a.ld + m]); }
+DEV float at(const BH& b, int k, int n) { return bf16_value(b.x[k * b.ld + n]); }
+DEV float at(const BHT& b, int k, int n) { return bf16_value(b.x[n * b.ld + k]); }
 
 #ifdef __CUDA_ARCH__
 // Fragments of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
@@ -396,6 +488,43 @@ DEV void frag_b(const BWGT& b, int k0, int n0, int lane, uint32_t r[NB][2]) {
     }
 }
 
+// Matrix q of an x4 ldmatrix (lanes 8q..8q+7 give its rows) is the A
+// fragment's register q: (m half q & 1, k half q >> 1).
+DEV void frag_a(const AH& a, int m0, int k0, int lane, uint32_t r[4]) {
+    const int q = lane >> 3;
+    ldsm_x4(a.x + (m0 + (lane & 7) + 8 * (q & 1)) * a.ld + k0 + 8 * (q >> 1), r);
+}
+
+// Stored [k][m]: each 8 x 8 block transposed on the way in.
+DEV void frag_a(const AHT& a, int m0, int k0, int lane, uint32_t r[4]) {
+    const int q = lane >> 3;
+    ldsm_x4_trans(a.x + (k0 + (lane & 7) + 8 * (q >> 1)) * a.ld + m0 + 8 * (q & 1),
+                  r);
+}
+
+// As BW and BWT, at the operand's own row stride.
+template <int NB>
+DEV void frag_b(const BH& b, int k0, int n0, int lane, uint32_t r[NB][2]) {
+    const int row = k0 + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+    for (int j = 0; j < NB; j += 2) {
+        uint32_t q[4];
+        ldsm_x4_trans(b.x + row * b.ld + n0 + 8 * j + 8 * (lane >> 4), q);
+        r[j][0] = q[0]; r[j][1] = q[1]; r[j + 1][0] = q[2]; r[j + 1][1] = q[3];
+    }
+}
+
+template <int NB>
+DEV void frag_b(const BHT& b, int k0, int n0, int lane, uint32_t r[NB][2]) {
+    const int col = k0 + 8 * ((lane >> 3) & 1);
+#pragma unroll
+    for (int j = 0; j < NB; j += 2) {
+        uint32_t q[4];
+        ldsm_x4(b.x + (n0 + 8 * j + (lane & 7) + 8 * (lane >> 4)) * b.ld + col, q);
+        r[j][0] = q[0]; r[j][1] = q[1]; r[j + 1][0] = q[2]; r[j + 1][1] = q[3];
+    }
+}
+
 DEV void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
     asm volatile(
         "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -466,6 +595,13 @@ DEV void copy_async(float* dst, const float* src, bool valid) {
 DEV void copy_commit() {
 #ifdef __CUDA_ARCH__
     asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+
+// Wait until every copy has landed.
+DEV void copy_wait_all() {
+#ifdef __CUDA_ARCH__
+    asm volatile("cp.async.wait_group 0;\n" ::);
 #endif
 }
 
@@ -627,6 +763,7 @@ DEV void head(int s, bool valid, float* sm, const float* raw,
     }
 }
 
+#if PPO_CL == 1
 // Everything one block does: its tiles block_id, block_id + grid, ...
 DEV void block_body(int block_id, int grid, float* sm,
                     const float* __restrict__ packed,
@@ -836,7 +973,534 @@ DEV void block_body(int block_id, int grid, float* sm,
     }
 }
 
+#else
+// ---- The cluster layout (PPO_CL=4) ---- //
+
+// One block of a cluster as its phases see it: its shared memory, its rank,
+// and every block's shared memory as it addresses it (DSMEM on the card).
+// On the host the sums that the card keeps in each thread's registers live
+// beside it: dw2 [HC][HS] and run [NT][NRUN].
+struct Cta {
+    float* sm;
+    float* peer[CL];
+    int rank;
+    float* dw2;
+    float* run;
+};
+
+DEV uint16_t* bf16_of(float* p) { return reinterpret_cast<uint16_t*>(p); }
+
+// A phase runs on every thread of every block of the cluster: on the card
+// one block's threads, then a barrier of the block (CPHASE_END) or of the
+// cluster (CPHASE_CLUSTER; CPHASE_ARRIVE and CPHASE_WAIT split it around
+// the next phase, whose writes the wait does not order); on the host a
+// loop over the blocks and their threads.  Each phase sees its block as c,
+// its shared memory as sm (wb as bf16), its gradient sums as G, the first
+// hidden unit it owns as j0, and the thread's running sums as RUN(k).
 #ifdef __CUDACC__
+DEV void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+DEV void cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+using CtaSet = Cta;  // this block
+#define CPHASE_BEGIN { const int tid = threadIdx.x; const Cta& c = cs; \
+    CPHASE_NAMES
+#define CPHASE_END } __syncthreads();
+#define CPHASE_ARRIVE } cluster_arrive();
+#define CPHASE_WAIT } cluster_wait();
+#define CPHASE_CLUSTER } cluster_arrive(); cluster_wait();
+#define RUN(k) run[k]
+#else
+using CtaSet = Cta*;  // every block of the cluster
+#define CPHASE_BEGIN for (int rank_ = 0; rank_ < CL; ++rank_) { \
+    const Cta& c = cs[rank_]; for (int tid = 0; tid < NT; ++tid) { CPHASE_NAMES
+#define CPHASE_END } }
+#define CPHASE_ARRIVE } }
+#define CPHASE_WAIT } }
+#define CPHASE_CLUSTER } }
+#define RUN(k) c.run[tid * NRUN + (k)]
+#endif
+#define CPHASE_NAMES float* const sm = c.sm; uint16_t* const wb = bf16_of(sm); \
+    float* const G = sm + C_G; const int j0 = c.rank * HS; \
+    (void)wb; (void)G; (void)j0;
+
+// dW2: warp w holds rows 16 (w + NWARPS mi) .. + 15 of the block's HC x HS
+// columns in registers, as mma.m16n8k16 sums (DW_MT row tiles of 16).
+constexpr int DW_MT = HC / 16;
+constexpr int DW_MPW = (DW_MT + NWARPS - 1) / NWARPS;
+constexpr int DW_NB = HS / 8;
+using DW2Regs = float[DW_MPW][DW_NB][4];
+
+// The element-wise passes over the block's [T][HS] slices: thread (warp w,
+// lane l) takes unit 32 (w % EJ) + l and the samples s = w / EJ + EG k, and
+// keeps its running sums of those samples over every tile (RUN: dWm, dWv2,
+// db2, dbv, db1), added over the EG sample groups once, at the end.
+constexpr int EJ = 2;
+constexpr int EG = NWARPS / EJ;
+constexpr int ES = T / EG;
+static_assert(HS > 32 * (EJ - 1) && HS <= 32 * EJ && T % EG == 0,
+              "two warps of lanes span a block's units");
+constexpr int R_WM = 0;  // [HW]
+constexpr int R_WV2 = HW;
+constexpr int R_B2 = HW + 1;
+constexpr int R_BV = HW + 2;
+constexpr int R_B1 = HW + 3;
+constexpr int NRUN = HW + 4;
+// The running sums of every thread, [EG][HS][NRUN], at the end where the
+// weights, h1 and dz2 were.
+static_assert(EG * HS * NRUN <= (CB_END - CB_W2C) / 2,
+              "the running sums fit the trunk's regions");
+static_assert(CL == 4, "warp_sums hands each sum to 4 blocks");
+
+// out(j, sum over k < K of term(k, j), q) for j < J, once for each q < 4:
+// a warp a j (warp w takes j = 4 w + b, 4 (w + NWARPS) + b, ...), its lane
+// l the k = l, l + 32, ... in order, the lanes' sums added by a butterfly
+// (xor 16, 8, 4, 2, 1), on the host in the same order.  Every lane then
+// holds every sum, and lane 4 b + q hands on sum b for q (a store to block
+// q, in the exchange).  For sums whose k runs along a row of shared
+// memory.
+template <class Term, class Out>
+DEV void warp_sums(int tid, int J, int K, Term term, Out out) {
+#ifdef __CUDA_ARCH__
+    const int warp = tid >> 5, lane = tid & 31;
+    for (int jb = 4 * warp; jb < J; jb += 4 * NWARPS) {
+        float v[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+            v[b] = 0.f;
+            if (jb + b < J)
+                for (int k = lane; k < K; k += 32) v[b] += term(k, jb + b);
+        }
+#pragma unroll
+        for (int w = 16; w >= 1; w >>= 1)
+#pragma unroll
+            for (int b = 0; b < 4; ++b) v[b] += __shfl_xor_sync(0xffffffffu, v[b], w);
+        if (lane < 16) {
+            const int b = lane >> 2;
+            const float vb = b == 0 ? v[0] : b == 1 ? v[1] : b == 2 ? v[2] : v[3];
+            if (jb + b < J) out(jb + b, vb, lane & 3);
+        }
+    }
+#else
+    for (int j = tid; j < J; j += NT) {
+        float v[32], u[32];
+        for (int l = 0; l < 32; ++l) {
+            v[l] = 0.f;
+            for (int k = l; k < K; k += 32) v[l] += term(k, j);
+        }
+        for (int w = 16; w >= 1; w >>= 1) {
+            for (int l = 0; l < 32; ++l) u[l] = v[l] + v[l ^ w];
+            for (int l = 0; l < 32; ++l) v[l] = u[l];
+        }
+        for (int q = 0; q < 4; ++q) out(j, v[0], q);
+    }
+#endif
+}
+
+// This block's columns [j0, j0 + HS) of a [T][HCS] bf16 tile, from its own
+// copy into every other block's, 16 bytes a store.
+DEV void push_slice(int tid, const Cta& c, int region) {
+    constexpr int CHUNKS = HS / 8;  // 8 bf16 a chunk
+    const uint16_t* own = bf16_of(c.sm) + region + c.rank * HS;
+    for (int i = tid; i < T * CHUNKS; i += NT) {
+        const int off = (i / CHUNKS) * HCS + 8 * (i % CHUNKS);
+        for (int q = 0; q < CL; ++q) {
+            if (q == c.rank) continue;
+            uint16_t* dst = bf16_of(c.peer[q]) + region + c.rank * HS + off;
+#ifdef __CUDA_ARCH__
+            *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(own + off);
+#else
+            memcpy(dst, own + off, 16);
+#endif
+        }
+    }
+}
+
+// The column in the packed rollout of the sample this thread copies in
+// tile `tile` (sample tid % T), or -1 past the minibatch's end.
+DEV long tile_col(int tid, int tile, const int* __restrict__ perm,
+                  const PPODims& dm) {
+    const int q = tile * T + tid % T;
+    return q < dm.mb ? (long)perm[q / dm.lb] * dm.lb + q % dm.lb : -1;
+}
+
+// Start the copy of a tile's raw columns: this thread's sample (column
+// col, zeros if -1), rows tid / T, tid / T + NT / T, ...
+DEV void issue_col(int tid, long col, float* raw,
+                   const float* __restrict__ packed, const PPODims& dm) {
+    static_assert(NT % T == 0, "threads a multiple of the tile");
+    const int s = tid % T;
+    for (int row = tid / T; row < D; row += NT / T)
+        copy_async(raw + row * RS + s,
+                   packed + (col >= 0 ? (long)row * dm.n + col : 0), col >= 0);
+}
+
+// dW2[j][j0 + i] += sum over the tile's samples s of h1[s][j] dz2[s][j0 + i],
+// both as bf16 (the cluster's h1 and the block's own columns of dz2).
+DEV void dw2_add(int tid, const Cta& c, DW2Regs& acc) {
+    const uint16_t* h1 = bf16_of(c.sm) + CB_H1;
+    const uint16_t* dz2 = bf16_of(c.sm) + CB_DZ2 + c.rank * HS;
+#ifdef __CUDA_ARCH__
+    const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+    for (int mi = 0; mi < DW_MPW; ++mi) {
+        const int mt = warp + NWARPS * mi;
+        if (mt >= DW_MT) break;
+#pragma unroll
+        for (int k0 = 0; k0 < T; k0 += 16) {
+            uint32_t af[4], bf[DW_NB][2];
+            frag_a(AHT{h1, HCS}, 16 * mt, k0, lane, af);
+            frag_b<DW_NB>(BH{dz2, HCS}, k0, 0, lane, bf);
+#pragma unroll
+            for (int j = 0; j < DW_NB; ++j) mma(acc[mi][j], af, bf[j]);
+        }
+    }
+#else
+    (void)acc;
+    for (int o = tid; o < HC * HS; o += NT) {
+        const int j = o / HS, i = o % HS;
+        float v = 0.f;
+        for (int s = 0; s < T; ++s)
+            v += bf16_value(h1[s * HCS + j]) * bf16_value(dz2[s * HCS + i]);
+        c.dw2[o] += v;
+    }
+#endif
+}
+
+// The block's columns of dW2 into the cluster's row of partial.
+DEV void dw2_write(int tid, const Cta& c, const DW2Regs& acc, float* out) {
+#ifdef __CUDA_ARCH__
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mi = 0; mi < DW_MPW; ++mi) {
+        const int mt = warp + NWARPS * mi;
+        if (mt >= DW_MT) break;
+#pragma unroll
+        for (int jb = 0; jb < DW_NB; ++jb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int j = 16 * mt + g + 8 * (e >> 1);
+                const int i = c.rank * HS + 8 * jb + 2 * t + (e & 1);
+                if (j < H && i < H) out[G_W2 + j * H + i] = acc[mi][jb][e];
+            }
+    }
+#else
+    (void)acc;
+    for (int o = tid; o < HC * HS; o += NT) {
+        const int j = o / HS, i = c.rank * HS + o % HS;
+        if (j < H && i < H) out[G_W2 + j * H + i] = c.dw2[o];
+    }
+#endif
+}
+
+// Everything one cluster does: its tiles row, row + rows, ...; its blocks'
+// sums into row `row` of partial.
+DEV void cluster_body(int row, int rows, CtaSet cs,
+                      const float* __restrict__ packed,
+                      const int* __restrict__ perm,
+                      const float* __restrict__ stats, const PPOParams& pr,
+                      float* __restrict__ partial, const PPODims& dm) {
+    const int n_tiles = (dm.mb + T - 1) / T;
+    // On the card each thread loads its sample's column of the tile after
+    // next a tile ahead, so that no copy waits on its block index.
+    long col_next = -1;
+    (void)col_next;
+    DW2Regs acc;
+    for (int mi = 0; mi < DW_MPW; ++mi)
+        for (int jb = 0; jb < DW_NB; ++jb)
+            for (int e = 0; e < 4; ++e) acc[mi][jb][e] = 0.f;
+    float run[NRUN];
+    for (int k = 0; k < NRUN; ++k) run[k] = 0.f;
+    (void)run;
+
+    // The block's weights: the trunk's as bf16, rows padded with zeros to
+    // the strides, units past H 0, Wm as [HW][HS]; zero sums; the first
+    // tile's copy.  The cluster barrier after it: every block runs before
+    // another writes into it.
+    CPHASE_BEGIN
+        for (int i = tid; i < ODP * WSS; i += NT) {
+            const int k = i / WSS, jl = i - k * WSS, j = j0 + jl;
+            const bool in = k < OD && jl < HS && j < H;
+            wb[CB_W1 + i] = bf16_bits(in ? pr.p[0][k * H + j] : 0.f);
+            wb[CB_WV + i] = bf16_bits(in ? pr.p[7][k * H + j] : 0.f);
+        }
+        for (int i = tid; i < HC * WSS; i += NT) {
+            const int k = i / WSS, jl = i - k * WSS, j = j0 + jl;
+            wb[CB_W2C + i] = bf16_bits(k < H && jl < HS && j < H
+                                           ? pr.p[2][k * H + j] : 0.f);
+        }
+        for (int i = tid; i < HS * HCS; i += NT) {
+            const int jl = i / HCS, k = i - jl * HCS, j = j0 + jl;
+            wb[CB_W2R + i] = bf16_bits(j < H && k < H ? pr.p[2][j * H + k] : 0.f);
+        }
+        for (int i = tid; i < HW * HS; i += NT) {
+            const int a = i / HS, j = j0 + i % HS;
+            sm[C_WM + i] = j < H ? pr.p[4][j * HW + a] : 0.f;
+        }
+        for (int jl = tid; jl < HS; jl += NT) {
+            const int j = j0 + jl;
+            const bool in = j < H;
+            sm[C_WV2 + jl] = in ? pr.p[9][j] : 0.f;
+            sm[C_B1 + jl] = in ? pr.p[1][j] : 0.f;
+            sm[C_B2 + jl] = in ? pr.p[3][j] : 0.f;
+            sm[C_BV + jl] = in ? pr.p[8][j] : 0.f;
+        }
+        for (int i = tid; i < HW; i += NT) {
+            sm[S_BM + i] = pr.p[5][i];
+            sm[S_LS + i] = pr.p[6][i];
+        }
+        if (tid == 0) sm[S_BV2] = pr.p[10][0];
+        for (int i = tid; i < LG; i += NT) G[i] = 0.f;
+        for (int i = tid; i < (RAW_ROWS - D) * RS; i += NT) {
+            sm[S_RAW + D * RS + i] = 0.f;
+            sm[S_RAW + RAW + D * RS + i] = 0.f;
+        }
+        if (row < n_tiles)
+            issue_col(tid, tile_col(tid, row, perm, dm), sm + S_RAW, packed, dm);
+        copy_commit();
+        copy_wait_all();
+#ifdef __CUDA_ARCH__
+        if (row + rows < n_tiles) col_next = tile_col(tid, row + rows, perm, dm);
+#endif
+    CPHASE_CLUSTER
+
+    int it = 0;
+    for (int tile = row; tile < n_tiles; tile += rows, ++it) {
+        const int rb = S_RAW + (it & 1) * RAW;  // this tile's raw columns
+        // This tile's copy has landed (the last phase of the one before
+        // waited for it); the next tile's starts, into the raw buffer that
+        // the tile before last used.  h1 = tanh(obs_b W1b + b1) over the
+        // block's units: fp32 into its own slice, bf16 into its columns of
+        // its h1, then into every other block's.
+        CPHASE_BEGIN
+            if (tile + rows < n_tiles) {
+#ifdef __CUDA_ARCH__
+                const long col = col_next;
+#else
+                const long col = tile_col(tid, tile + rows, perm, dm);
+#endif
+                issue_col(tid, col, sm + S_RAW + ((it + 1) & 1) * RAW, packed, dm);
+            }
+            copy_commit();
+#ifdef __CUDA_ARCH__
+            if (tile + 2 * rows < n_tiles)
+                col_next = tile_col(tid, tile + 2 * rows, perm, dm);
+#endif
+            tc_product<T, HS, ODP>(
+                tid, ACols{sm + rb, RS}, BH{wb + CB_W1, WSS},
+                [&](int s, int jl, float v) {
+                    const float h = tanhf(v + sm[C_B1 + jl]);
+                    sm[C_X1 + s * XSS + jl] = h;
+                    wb[CB_H1 + s * HCS + j0 + jl] = bf16_bits(h);
+                });
+        CPHASE_END
+        CPHASE_BEGIN
+            push_slice(tid, c, CB_H1);
+        CPHASE_ARRIVE
+
+        // hv = tanh(obs_b Wvb + bv) over the block's units, while the other
+        // blocks' h1 arrives.
+        CPHASE_BEGIN
+            tc_product<T, HS, ODP>(
+                tid, ACols{sm + rb, RS}, BH{wb + CB_WV, WSS},
+                [&](int s, int jl, float v) {
+                    sm[C_XV + s * XSS + jl] = tanhf(v + sm[C_BV + jl]);
+                });
+        CPHASE_WAIT
+
+        // h2 = tanh(h1_b W2b + b2) over the block's units.
+        CPHASE_BEGIN
+            tc_product<T, HS, HC>(
+                tid, AH{wb + CB_H1, HCS}, BH{wb + CB_W2C, WSS},
+                [&](int s, int jl, float v) {
+                    sm[C_X2 + s * XSS + jl] = tanhf(v + sm[C_B2 + jl]);
+                });
+        CPHASE_END
+
+        // The block's terms of mean (or logits) = h2 Wm and value = hv Wv2,
+        // into every block's row c.rank of the partial sums.
+        CPHASE_BEGIN
+            warp_sums(
+                tid, (HW + 1) * T, HS,
+                [&](int jl, int i) {
+                    const int a = i / T, s = i % T;
+                    return a < HW ? sm[C_WM + a * HS + jl] * sm[C_X2 + s * XSS + jl]
+                                  : sm[C_WV2 + jl] * sm[C_XV + s * XSS + jl];
+                },
+                [&](int i, float v, int q) {
+                    (q == c.rank ? sm : c.peer[q])[C_HP + c.rank * (HW + 1) * T + i] = v;
+                });
+        CPHASE_CLUSTER
+
+        // The head of sample tid: mean + bm and value + bv2 from the blocks'
+        // terms added in rank order (the same numbers in every block), then
+        // the loss terms and the gradients of mean and value.
+        CPHASE_BEGIN
+            if (tid < T) {
+                for (int a = 0; a <= HW; ++a) {
+                    const int i = a * T + tid;
+                    float v = sm[C_HP + i];
+                    for (int q = 1; q < CL; ++q) v += sm[C_HP + q * (HW + 1) * T + i];
+                    if (a < HW) sm[S_MEAN + a * TS + tid] = v + sm[S_BM + a];
+                    else sm[S_VAL + tid] = v + sm[S_BV2];
+                }
+                head(tid, tile * T + tid < dm.mb, sm, sm + rb, stats, dm);
+            }
+        CPHASE_END
+
+        // dz2 = (dmean Wm') (1 - h2^2) and dzv = dvalue Wv2' (1 - hv^2) over
+        // the block's units (0 past H: Wm and Wv2 are 0 there), dz2 also as
+        // bf16 into its columns of its dz2; the thread's running dWm, dWv2,
+        // db2 and dbv.  Rank 0 adds the head's own rows (S_MEAN (HW),
+        // S_VAL, S_PG, S_VF, S_ENT and, Gaussian, S_DLS (AW), one after the
+        // other at the stride TS) into its sums.
+        CPHASE_BEGIN
+            const int jl = 32 * ((tid >> 5) % EJ) + (tid & 31);
+            if (jl < HS)
+                for (int k = 0; k < ES; ++k) {
+                    const int s = (tid >> 5) / EJ + EG * k;
+                    const float h = sm[C_X2 + s * XSS + jl];
+                    float v = 0.f;
+                    for (int a = 0; a < HW; ++a) {
+                        const float dmean = sm[S_MEAN + a * TS + s];
+                        v += sm[C_WM + a * HS + jl] * dmean;
+                        RUN(R_WM + a) += h * dmean;
+                    }
+                    const float dz2 = v * (1.0f - h * h);
+                    const float dvalue = sm[S_VAL + s];
+                    const float hv = sm[C_XV + s * XSS + jl];
+                    const float dzv = sm[C_WV2 + jl] * dvalue * (1.0f - hv * hv);
+                    RUN(R_WV2) += hv * dvalue;
+                    RUN(R_B2) += dz2;
+                    RUN(R_BV) += dzv;
+                    sm[C_X2 + s * XSS + jl] = dz2;
+                    sm[C_XV + s * XSS + jl] = dzv;
+                    wb[CB_DZ2 + s * HCS + j0 + jl] = bf16_bits(dz2);
+                }
+            if (c.rank == 0)
+                warp_sums(
+                    tid, HW + 4 + (DISCRETE ? 0 : AW), T,
+                    [&](int s, int r) { return sm[S_MEAN + r * TS + s]; },
+                    [&](int r, float v, int q) {
+                        if (q != 0) return;
+                        const int to = r < HW ? L_BM + r
+                                     : r == HW ? L_BV2
+                                     : r < HW + 4 ? L_SUMS + r - HW - 1
+                                     : L_LS + r - HW - 4;
+                        G[to] += v;
+                    });
+        CPHASE_END
+
+        // dz2 into every other block's; dW2 += h1_b' dz2_b over the block's
+        // columns.  It reads the cluster's h1, so it ends before this
+        // block arrives.
+        CPHASE_BEGIN
+            push_slice(tid, c, CB_DZ2);
+            dw2_add(tid, c, acc);
+        CPHASE_ARRIVE
+
+        // dWv += obs_b' dzv_b, while the other blocks' dz2 arrives.
+        CPHASE_BEGIN
+            tc_product<ODP, HS, T>(
+                tid, ARows{sm + rb, RS}, BCols{sm + C_XV, XSS},
+                [&](int k, int j, float v) {
+                    if (k < OD) G[L_WV + k * HS + j] += v;
+                });
+        CPHASE_WAIT
+
+        // dz1 = (dz2_b W2b') (1 - h1^2) over the block's units.
+        CPHASE_BEGIN
+            tc_product<T, HS, HC>(
+                tid, AH{wb + CB_DZ2, HCS}, BHT{wb + CB_W2R, HCS},
+                [&](int s, int jl, float v) {
+                    const float h = sm[C_X1 + s * XSS + jl];
+                    sm[C_X1 + s * XSS + jl] = v * (1.0f - h * h);
+                });
+        CPHASE_END
+
+        // The running db1; dW1 += obs_b' dz1_b; the next tile's copy lands.
+        CPHASE_BEGIN
+            const int jl = 32 * ((tid >> 5) % EJ) + (tid & 31);
+            if (jl < HS)
+                for (int k = 0; k < ES; ++k)
+                    RUN(R_B1) += sm[C_X1 + ((tid >> 5) / EJ + EG * k) * XSS + jl];
+            tc_product<ODP, HS, T>(
+                tid, ARows{sm + rb, RS}, BCols{sm + C_X1, XSS},
+                [&](int k, int j, float v) {
+                    if (k < OD) G[L_W1 + k * HS + j] += v;
+                });
+            copy_wait_all();
+        CPHASE_END
+    }
+
+    // The running sums of the EG sample groups, added in group order, where
+    // the trunk's weights, h1 and dz2 were (no block writes there any more).
+    CPHASE_BEGIN
+        float* const runs = reinterpret_cast<float*>(wb + CB_W2C);
+        const int jl = 32 * ((tid >> 5) % EJ) + (tid & 31);
+        if (jl < HS)
+            for (int k = 0; k < NRUN; ++k)
+                runs[((tid >> 5) / EJ * HS + jl) * NRUN + k] = RUN(k);
+    CPHASE_END
+    CPHASE_BEGIN
+        const float* const runs = reinterpret_cast<const float*>(wb + CB_W2C);
+        for (int i = tid; i < HS * NRUN; i += NT) {
+            const int jl = i / NRUN, k = i % NRUN;
+            float v = runs[i];
+            for (int g = 1; g < EG; ++g) v += runs[g * HS * NRUN + i];
+            const int to = k < HW ? L_WM + jl * HW + k
+                         : k == R_WV2 ? L_WV2 + jl
+                         : k == R_B2 ? L_B2 + jl
+                         : k == R_BV ? L_BV + jl
+                         : L_B1 + jl;
+            G[to] = v;
+        }
+    CPHASE_END
+
+    // Each block's share of the cluster's row, once; rank 0 writes the
+    // head's sums.  The barrier after it: no block leaves while another
+    // may still write into it.
+    CPHASE_BEGIN
+        float* const out = partial + (long)row * P;
+        for (int i = tid; i < OD * HS; i += NT) {
+            const int k = i / HS, j = j0 + i % HS;
+            if (j < H) {
+                out[G_W1 + k * H + j] = G[L_W1 + i];
+                out[G_WV + k * H + j] = G[L_WV + i];
+            }
+        }
+        for (int jl = tid; jl < HS; jl += NT) {
+            const int j = j0 + jl;
+            if (j < H) {
+                out[G_B1 + j] = G[L_B1 + jl];
+                out[G_B2 + j] = G[L_B2 + jl];
+                out[G_BV + j] = G[L_BV + jl];
+                out[G_WV2 + j] = G[L_WV2 + jl];
+            }
+        }
+        for (int i = tid; i < HS * HW; i += NT) {
+            const int j = j0 + i / HW;
+            if (j < H) out[G_WM + j * HW + i % HW] = G[L_WM + i];
+        }
+        if (c.rank == 0) {
+            for (int i = tid; i < HW; i += NT) {
+                out[G_BM + i] = G[L_BM + i];
+                out[G_LS + i] = G[L_LS + i];
+            }
+            if (tid == 0) {
+                out[G_BV2] = G[L_BV2];
+                for (int k = 0; k < 3; ++k) out[G_SUMS + k] = G[L_SUMS + k];
+            }
+        }
+        dw2_write(tid, c, acc, out);
+    CPHASE_CLUSTER
+}
+#endif
+
+#ifdef __CUDACC__
+#if PPO_CL == 1
 __global__ void __launch_bounds__(NT, 2)
 ppo_update_kernel(const float* __restrict__ packed, const int* __restrict__ perm,
                   const float* __restrict__ stats, const PPOParams pr,
@@ -845,6 +1509,24 @@ ppo_update_kernel(const float* __restrict__ packed, const int* __restrict__ perm
     block_body(blockIdx.x, gridDim.x, reinterpret_cast<float*>(smem4), packed,
                perm, stats, pr, partial, dm);
 }
+#else
+// Cluster blockIdx.x / CL takes row blockIdx.x / CL of partial.
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, 1)
+ppo_update_kernel(const float* __restrict__ packed, const int* __restrict__ perm,
+                  const float* __restrict__ stats, const PPOParams pr,
+                  float* __restrict__ partial, const PPODims dm) {
+    extern __shared__ float4 smem4[];
+    const cooperative_groups::cluster_group cluster =
+        cooperative_groups::this_cluster();
+    Cta c;
+    c.sm = reinterpret_cast<float*>(smem4);
+    c.rank = (int)cluster.block_rank();
+    for (int q = 0; q < CL; ++q) c.peer[q] = cluster.map_shared_rank(c.sm, q);
+    c.dw2 = c.run = nullptr;
+    cluster_body(blockIdx.x / CL, gridDim.x / CL, c, packed, perm, stats, pr,
+                 partial, dm);
+}
+#endif
 
 // out[p] = sum over blocks in a fixed order: 8 threads each add one run
 // of the rows in block order, then the 8 runs are added in order.  A block
@@ -878,14 +1560,8 @@ extern "C" int vmt_ppo_smem_bytes() { return SMEM_BYTES; }
 extern "C" int vmt_ppo_scratch_floats() { return SCRATCH; }
 
 #ifdef __CUDACC__
-// One minibatch: `grid` blocks write their sums to partial [grid, P], then
-// out [P] gets their sum.  With PPO_XG=1 the buffer holds, from float
-// up4(grid * P) on, grid slices of vmt_ppo_scratch_floats() more.
-// Returns the CUDA error of the launches (0: none).
-extern "C" int vmt_ppo_update(const float* packed, const int* perm,
-                              const float* stats, const PPOParams* params,
-                              float* partial, float* out, const PPODims* dims,
-                              int grid, void* stream) {
+// The kernel's shared memory, set once; the CUDA error (0: none).
+static int configure() {
     static bool configured = false;
     if (!configured) {
         cudaError_t err = cudaFuncSetAttribute(
@@ -894,9 +1570,41 @@ extern "C" int vmt_ppo_update(const float* packed, const int* perm,
         if (err != cudaSuccess) return (int)err;
         configured = true;
     }
+    return 0;
+}
+
+// Clusters of the update kernel the current device runs at once (the
+// cluster layout's most rows of partial); 0 on an error or with PPO_CL=1.
+extern "C" int vmt_ppo_max_clusters() {
+#if PPO_CL == 1
+    return 0;
+#else
+    if (configure() != 0) return 0;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CL, 1, 1);
+    cfg.blockDim = dim3(NT, 1, 1);
+    cfg.dynamicSmemBytes = SMEM_BYTES;
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, ppo_update_kernel, &cfg) != cudaSuccess)
+        return 0;
+    return n;
+#endif
+}
+
+// One minibatch: `grid` blocks (clusters of CL blocks, in the cluster
+// layout) write their sums to partial [grid, P], then out [P] gets their
+// sum.  With PPO_XG=1 the buffer holds, from float up4(grid * P) on, grid
+// slices of vmt_ppo_scratch_floats() more.  Returns the CUDA error of the
+// launches (0: none).
+extern "C" int vmt_ppo_update(const float* packed, const int* perm,
+                              const float* stats, const PPOParams* params,
+                              float* partial, float* out, const PPODims* dims,
+                              int grid, void* stream) {
+    const int err0 = configure();
+    if (err0 != 0) return err0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    ppo_update_kernel<<<grid, NT, SMEM_BYTES, s>>>(packed, perm, stats, *params,
-                                                   partial, *dims);
+    ppo_update_kernel<<<grid * CL, NT, SMEM_BYTES, s>>>(packed, perm, stats,
+                                                        *params, partial, *dims);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     ppo_reduce_kernel<<<(P + 31) / 32, 32 * RED_RUNS, 0, s>>>(partial, grid,
@@ -904,15 +1612,35 @@ extern "C" int vmt_ppo_update(const float* packed, const int* perm,
     return (int)cudaGetLastError();
 }
 #else
-// The same phases on the host, one block after the other.
+extern "C" int vmt_ppo_max_clusters() { return 0; }
+
+// The same phases on the host, one block (or cluster) after the other.
 extern "C" int vmt_ppo_update(const float* packed, const int* perm,
                               const float* stats, const PPOParams* params,
                               float* partial, float* out, const PPODims* dims,
                               int grid, void*) {
+#if PPO_CL == 1
     std::vector<float> sm(S_TOTAL);
     for (int b = 0; b < grid; ++b)
         block_body(b, grid, sm.data(), packed, perm, stats, *params, partial,
                    *dims);
+#else
+    std::vector<float> sm(CL * (long)S_TOTAL), dw2(CL * (long)HC * HS),
+        run(CL * (long)NT * NRUN);
+    for (int b = 0; b < grid; ++b) {
+        Cta cs[CL];
+        for (int r = 0; r < CL; ++r) {
+            cs[r].sm = sm.data() + r * (long)S_TOTAL;
+            cs[r].rank = r;
+            cs[r].dw2 = dw2.data() + r * (long)HC * HS;
+            cs[r].run = run.data() + r * (long)NT * NRUN;
+            for (int q = 0; q < CL; ++q) cs[r].peer[q] = sm.data() + q * (long)S_TOTAL;
+        }
+        std::fill(dw2.begin(), dw2.end(), 0.f);
+        std::fill(run.begin(), run.end(), 0.f);
+        cluster_body(b, grid, cs, packed, perm, stats, *params, partial, *dims);
+    }
+#endif
     for (int p = 0; p < P; ++p) {
         float sum = 0.f;
         for (int g = 0; g < grid; ++g) sum += partial[(long)g * P + p];

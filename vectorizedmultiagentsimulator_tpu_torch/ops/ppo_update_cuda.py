@@ -13,17 +13,20 @@ Replaces the JAX package's Pallas kernel
   multiplied in float32, so the result does not depend on a bf16 matrix
   product;
 * ``update_supported(spec)``: whether the kernel takes a spec: a trunk too
-  wide for its gradient sums (from about hidden 160), then for its bf16
-  weights (from about 260), then for its fp32 activation tiles (past about
-  1,040 at obs_d 15), to share a block's shared memory keeps them in
-  device memory; only packed rows too many for two raw tiles of 16 samples
-  (more than about 1,200) are refused;
+  wide for its gradient sums to share a block's shared memory (from about
+  hidden 150 to 256) is split over a cluster of 4 blocks, which keep the
+  sums on chip; one too wide for its bf16 weights (from about 260), then
+  for its fp32 activation tiles (past about 1,040 at obs_d 15), keeps the
+  sums, then the weights, then the tiles in device memory; only packed rows
+  too many for two raw tiles of 16 samples (more than about 1,200) are
+  refused;
 * ``minibatch_update``: the wrapper.  On CUDA tensors it launches the kernel
   or raises; on CPU tensors it runs ``minibatch_update_plain``.  It returns
   gradients and nothing differentiates through it, so it is no
   ``autograd.Function``;
 * ``LAUNCHES``: the number of minibatches sent to the kernel, counted where
-  the kernel is launched and nowhere else.
+  the kernel is launched and nowhere else, and ``LAUNCHES_BY_LAYOUT``, the
+  same by ``layout(spec)``.
 
 The kernel's head shape is static, so the source is compiled once per
 ``(obs_d, act_w, hidden, n_logits, layout(spec))`` at first use by
@@ -43,6 +46,7 @@ import torch
 from vectorizedmultiagentsimulator_tpu_torch.ops import cuda_build
 
 LAUNCHES = 0
+LAUNCHES_BY_LAYOUT = {}
 
 SOURCE = os.path.join(cuda_build.CSRC, "ppo_update.cu")
 
@@ -53,6 +57,7 @@ TILES = (64, 32, 16)
 MAX_SMEM_BYTES = 232448
 SM_SMEM_BYTES = 233472
 MAX_BLOCKS_PER_SM = 2  # __launch_bounds__(256, 2)
+CLUSTER = 4  # blocks of a cluster in the cluster layout (PPO_CL)
 
 _LOG_2PI = float(math.log(2.0 * math.pi))
 _ENT_C = float(0.5 * math.log(2.0 * math.pi) + 0.5)  # per-dim Gaussian ent.
@@ -302,8 +307,8 @@ def _up16(x: int) -> int:
 
 
 def smem_bytes(spec: PPOUpdateSpec, tile: int, global_sums: bool,
-               global_weights: bool = False,
-               global_tiles: bool = False) -> int:
+               global_weights: bool = False, global_tiles: bool = False,
+               cluster: int = 1) -> int:
     """Shared memory of one block with ``tile`` samples a tile (the layout
     of csrc/ppo_update.cu): the trunk weights as bf16 rows of ``up16(hidden)
     + 8`` unless ``global_weights``, the heads' weights and biases (the
@@ -311,7 +316,10 @@ def smem_bytes(spec: PPOUpdateSpec, tile: int, global_sums: bool,
     ``global_sums``, two raw tiles of ``max(D, up16(obs_d))`` rows of
     ``tile + 8``, three activation tiles ``[tile][up16(hidden) + 8]``
     unless ``global_tiles``, and the head's rows at a stride of ``tile +
-    4``."""
+    4``.  With ``cluster`` blocks (``cluster_smem_bytes``) the block's
+    slices instead."""
+    if cluster > 1:
+        return cluster_smem_bytes(spec, tile, cluster)
     od, aw, H, hw = spec.obs_d, spec.act_w, spec.hidden, spec.mask_w
     hp, odp = _up16(H), _up16(od)
     weights = 0 if global_weights else 2 * (2 * odp + hp) * (hp + 8)
@@ -323,6 +331,35 @@ def smem_bytes(spec: PPOUpdateSpec, tile: int, global_sums: bool,
     if global_tiles:
         floats -= vector_floats(spec) + 3 * tile * (hp + 8)
     return weights + 4 * floats
+
+
+def cluster_units(spec: PPOUpdateSpec, cluster: int = CLUSTER) -> int:
+    """Hidden units a block of the cluster owns: ``up16(ceil(hidden /
+    cluster))``."""
+    return _up16(-(-spec.hidden // cluster))
+
+
+def cluster_smem_bytes(spec: PPOUpdateSpec, tile: int,
+                       cluster: int = CLUSTER) -> int:
+    """Shared memory of one block of the cluster layout, block r owning
+    ``hs = cluster_units(spec)`` hidden units of ``hc = cluster * hs``: as
+    bf16 its columns of W1 and Wv (``[up16(obs_d)][hs + 8]``) and W2
+    (``[hc][hs + 8]``), its rows of W2 (``[hs][hc + 8]``), the cluster's h1
+    and dz2 (``[tile][hc + 8]`` each); as fp32 its slices of Wm, Wv2 and the
+    three trunk biases, the head's bm, log_std and bv2, its gradient sums
+    but dW2, two raw tiles, three activation slices ``[tile][hs + 8]``, the
+    rank-ordered partial sums of mean and value ``[cluster][hw + 1][tile]``
+    and the head's rows."""
+    od, aw, hw = spec.obs_d, spec.act_w, spec.mask_w
+    hs, odp = cluster_units(spec, cluster), _up16(od)
+    hc = cluster * hs
+    bf16 = (2 * odp + hc) * (hs + 8) + (hs + 2 * tile) * (hc + 8)
+    sums = 2 * od * hs + 3 * hs + hs * hw + hs + 2 * hw + 1 + 3
+    floats = _up4(hs * hw) + 4 * hs + 2 * _up4(hw) + 4 + _up4(sums)
+    floats += 2 * max(spec.d, odp) * (tile + 8) + 3 * tile * (hs + 8)
+    floats += cluster * (hw + 1) * tile
+    floats += (tile + 4) * (hw + 4 + (0 if spec.discrete else aw))
+    return 2 * bf16 + 4 * floats
 
 
 def vector_floats(spec: PPOUpdateSpec) -> int:
@@ -341,25 +378,48 @@ def scratch_floats(spec: PPOUpdateSpec, tile: int,
     return vector_floats(spec) + 3 * tile * (_up16(spec.hidden) + 8)
 
 
+def cluster_fits(spec: PPOUpdateSpec, tile: int) -> bool:
+    """Whether the cluster layout takes ``spec`` at ``tile``: its block's
+    shared memory fits, two warps of lanes span a block's units, and the
+    running sums of its 8 sample groups (``hw + 4`` a unit) fit where the
+    trunk's weights, h1 and dz2 were."""
+    hs = cluster_units(spec)
+    hc = CLUSTER * hs
+    trunk_floats = (hc * (hs + 8) + (hs + 2 * tile) * (hc + 8)) // 2
+    return (cluster_smem_bytes(spec, tile) <= MAX_SMEM_BYTES
+            and 32 < hs <= 64
+            and 8 * hs * (spec.mask_w + 4) <= trunk_floats)
+
+
 # (global_sums, global_weights, global_tiles) in the order they are tried.
 _PLACEMENTS = ((False, False, False), (True, False, False),
                (True, True, False), (True, True, True))
 
 
 def layout(spec: PPOUpdateSpec):
-    """``(tile, global_sums, global_weights, global_tiles)`` the kernel is
-    compiled with for ``spec``: everything in shared memory with the
-    largest tile of ``TILES`` that fits (64 samples up to hidden 112, 32 to
-    144, 16 to 160); else the gradient sums in device memory (to hidden
-    256); else the trunk weights too, read from device memory (to hidden
-    1,040 at obs_d 15, where three fp32 activation tiles of 16 samples
-    still fit a block); else the activation tiles and hidden-size vectors
-    too, in a scratch in device memory, any hidden size.  Only packed rows
-    too many for two raw tiles of 16 samples are refused."""
+    """``(tile, global_sums, global_weights, global_tiles, cluster)`` the
+    kernel is compiled with for ``spec``: one block a tile (``cluster`` 1)
+    with everything in shared memory and the largest tile of ``TILES`` that
+    fits (64 samples up to hidden 112, 32 to 144, 16 to 160); else, while
+    the bf16 trunk weights and one block's sums-free tiles of 16 samples
+    would fit a block (to hidden 256), a cluster of ``CLUSTER`` blocks
+    sharing each tile, each with its quarter of the hidden units, sums on
+    chip, at the largest tile that fits (64 at hidden 256); else the
+    gradient sums and the trunk weights in device memory, the weights read
+    from there (to hidden 1,040 at obs_d 15, where three fp32 activation
+    tiles of 16 samples still fit a block); else the activation tiles and
+    hidden-size vectors too, in a scratch in device memory, any hidden
+    size.  Only packed rows too many for two raw tiles of 16 samples are
+    refused."""
     for placement in _PLACEMENTS:
         for tile in TILES:
-            if smem_bytes(spec, tile, *placement) <= MAX_SMEM_BYTES:
-                return (tile,) + placement
+            if smem_bytes(spec, tile, *placement) > MAX_SMEM_BYTES:
+                continue
+            if placement == (True, False, False):
+                for ctile in TILES:
+                    if cluster_fits(spec, ctile):
+                        return (ctile, False, False, False, CLUSTER)
+            return (tile,) + placement + (1,)
     raise ValueError(f"the PPO update kernel does not take {spec}: two raw"
                      f" tiles of {spec.d} packed rows and 16 samples exceed"
                      " a block's shared memory; use fused_update=False for"
@@ -372,7 +432,8 @@ def tile_size(spec: PPOUpdateSpec) -> int:
 
 
 def blocks_per_sm(spec: PPOUpdateSpec) -> int:
-    """Blocks of the kernel that share an SM's shared memory."""
+    """Blocks of the kernel that share an SM's shared memory (one in the
+    cluster layout)."""
     per_block = smem_bytes(spec, *layout(spec)) + 1024
     return max(1, min(MAX_BLOCKS_PER_SM, SM_SMEM_BYTES // per_block))
 
@@ -393,11 +454,12 @@ def require_supported(spec: PPOUpdateSpec) -> None:
 
 
 def defines(spec: PPOUpdateSpec):
-    tile, global_sums, global_weights, global_tiles = layout(spec)
+    tile, global_sums, global_weights, global_tiles, cluster = layout(spec)
     return (f"PPO_OD={spec.obs_d}", f"PPO_AW={spec.act_w}",
             f"PPO_H={spec.hidden}", f"PPO_NL={spec.n_logits}",
             f"PPO_T={tile}", f"PPO_GG={int(global_sums)}",
-            f"PPO_WG={int(global_weights)}", f"PPO_XG={int(global_tiles)}")
+            f"PPO_WG={int(global_weights)}", f"PPO_XG={int(global_tiles)}",
+            f"PPO_CL={cluster}")
 
 
 def build(spec: PPOUpdateSpec) -> str:
@@ -422,15 +484,19 @@ class _Launcher(NamedTuple):
     dims: _PPODims
     flat: int
     scratch: int  # floats of a block's slice of the scratch
+    layout: tuple
+    max_rows: int  # rows of partial the card runs at once (blocks, clusters)
 
 
 _launchers = {}
 
 
-def _launcher(spec: PPOUpdateSpec, n: int) -> _Launcher:
+def _launcher(spec: PPOUpdateSpec, n: int, dev) -> _Launcher:
     """``vmt_ppo_update`` for ``spec``'s shape, built and bound at the first
-    launch, with the ``PPODims`` of ``(spec, n)`` filled once."""
-    key = (spec, n)
+    launch, with the ``PPODims`` of ``(spec, n)`` filled once and the most
+    rows of the partial buffer that run at once on ``dev``: blocks, or
+    clusters in the cluster layout."""
+    key = (spec, n, dev)
     if key not in _launchers:
         lib = ctypes.CDLL(build(spec))
         tile, *placement = layout(spec)
@@ -443,11 +509,21 @@ def _launcher(spec: PPOUpdateSpec, n: int) -> _Launcher:
                 "csrc/ppo_update.cu and ops/ppo_update_cuda.py disagree on"
                 " the kernel's layout"
             )
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        if placement[3] > 1:
+            with torch.cuda.device(dev):
+                max_rows = lib.vmt_ppo_max_clusters()
+            if max_rows <= 0:
+                raise RuntimeError(
+                    f"the PPO update kernel's {placement[3]}-block clusters do"
+                    f" not fit {torch.cuda.get_device_name(dev)}")
+        else:
+            max_rows = blocks_per_sm(spec) * sms
         fn = lib.vmt_ppo_update
         fn.argtypes = [_P] * 7 + [_I, _P]
         fn.restype = _I
         _launchers[key] = _Launcher(fn, ppo_dims(spec, n), flat_size(spec),
-                                    scratch)
+                                    scratch, (tile, *placement), max_rows)
     return _launchers[key]
 
 
@@ -500,12 +576,8 @@ def launch(spec: PPOUpdateSpec, packed_fm: Tensor, perm_mb: Tensor,
             )
         if not x.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    launcher = _launcher(spec, n)
-    grid = min(
-        -(-spec.mb // tile_size(spec)),
-        blocks_per_sm(spec)
-        * torch.cuda.get_device_properties(dev).multi_processor_count,
-    )
+    launcher = _launcher(spec, n, dev)
+    grid = min(-(-spec.mb // launcher.layout[0]), launcher.max_rows)
     partial = torch.empty(
         (partial_floats(grid, launcher.flat, launcher.scratch),),
         dtype=torch.float32, device=dev)
@@ -520,6 +592,8 @@ def launch(spec: PPOUpdateSpec, packed_fm: Tensor, perm_mb: Tensor,
     if err != 0:
         raise RuntimeError(f"PPO update kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    LAUNCHES_BY_LAYOUT[launcher.layout] = (
+        LAUNCHES_BY_LAYOUT.get(launcher.layout, 0) + 1)
     return split_flat(spec, flat)
 
 
